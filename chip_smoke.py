@@ -20,7 +20,20 @@ Phases, each of which exits non-zero on the first failure:
      version and torch.cdist, and the headline evaluation split into its
      parts; the host's enqueue time of one evaluation; then five headline
      evaluations under torch.profiler (device time by kernel and by
-     operator, and the device-busy share).
+     operator, and the device-busy share);
+  9. the Cholesky study's kernels (csrc/cholesky.cu) and its SE gram against
+     their plain versions on the card: the launch probe exactly, the study
+     gram within f32 rounding, the panel at B = 256, 512, 1024, the single
+     launch at n = 2048 (and against an f64 factorization);
+ 10. the study's path at full size: the study gram (n = 3072), the probe,
+     `cholesky_blocked_panels` at n = 10240, block = 1024 (10 panel
+     launches) and the single launch at n = 10240 (1 launch), both against
+     f32 `torch.linalg.cholesky_ex`;
+ 11. the study's timings (perf/cholesky_study.py, whose experiments check
+     every size they time: the study gram up to n = 16384, the panel at
+     B = 3072 on the headline's SE gram against its plain version and f64),
+     the plain versions' times, and the single launch at n = 10240 against
+     its plain version.
 The kernel launch counts are set to 0 before each main-path call and read
 after it. The last three lines are the kernel table (JSON), the card, and
 {"ok": true, "device": {...}}.
@@ -28,6 +41,7 @@ after it. The last three lines are the kernel table (JSON), the card, and
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,12 +51,15 @@ import numpy as np
 import torch
 
 import gaussianprocesses_jl_tpu_torch as gp
+from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels as chol_op
 from gaussianprocesses_jl_tpu_torch.ops import cuda, gram as gram_op
 from gaussianprocesses_jl_tpu_torch.ops.linalg import (
     add_diag,
     tri_inv_lower,
     tri_syrk_lower,
 )
+from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
+from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -106,23 +123,13 @@ def device_profile(fn, reps=5, top=10):
     `top` device kernels and the `top` operators by self device time per
     call, each as (name, ms, calls)). Busy time sums the kernels alone: an
     operator's self device time is its kernels' time counted again."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    kernels, ops = device_ms_by_name(fn, reps=reps)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    kernels = [e for e in rows if e.device_type == DeviceType.CUDA]
-    ops = [e for e in rows if e.device_type != DeviceType.CUDA]
+    def ranked(rows):
+        rows = sorted(rows.items(), key=lambda kv: -kv[1][0])
+        return [(key, ms, int(calls)) for key, (ms, calls) in rows[:top]]
 
-    def ranked(events):
-        events = sorted(events, key=lambda e: -e.self_device_time_total)
-        return [(e.key, e.self_device_time_total / 1e3 / reps, e.count // reps)
-                for e in events[:top]]
-
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
+    busy_ms = sum(ms for ms, _ in kernels.values())
     return busy_ms, ranked(kernels), ranked(ops)
 
 
@@ -226,6 +233,228 @@ def phase_model(name, make, expect_launches):
     check_close(f"{name} f64 card gradient vs f64 CPU", g64.cpu(), g_ref, 1e-8,
                 1e-10 * gmax)
     return m32, n_launch
+
+
+N_STUDY, STUDY_BLOCK = 10240, 1024  # the study's full factorization
+N_STUDY_GRAM = 3072
+
+
+def reset_launches() -> None:
+    gram_op.LAUNCHES["gram"] = 0
+    for name in chol_op.LAUNCHES:
+        chol_op.LAUNCHES[name] = 0
+
+
+def max_rel(got, ref) -> float:
+    """max|got - ref| / max|ref|, in f64 (NaN if either holds a NaN)."""
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def check_rel(what, got, ref, tol) -> float:
+    """Fails unless max|got - ref| <= tol max|ref|; returns max|got - ref|."""
+    err = max_rel(got, ref)
+    ok = err <= tol  # False on NaN
+    print(f"  {what}: max|got - ref| / max|ref| = {err:.3e} (tol {tol:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{what} disagrees with its reference")
+    return float((got.double() - ref.double()).abs().max())
+
+
+def phase_study_vs_plain(dev) -> dict:
+    """Each study kernel against its plain version on the same card inputs;
+    returns {kernel: largest absolute difference}. Tolerances: the probe is
+    exact (the same f32 add); the study gram atol 1e-5 e^p0 (the plain
+    version takes the clamped expansion at these n, which rounds r2 to a few
+    ulp of |x|^2); the panel and the single launch 1e-5 of max|ref| (two
+    summation orders of a well-conditioned f32 factorization, each within
+    ~1e-6 of f64), and the single launch within the study's 1e-4 of f64."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    errs = {}
+    A = torch.randn((512, 512), generator=g, dtype=torch.float32, device=dev)
+    for n_iter in (512, 4096):
+        o = chol_op.launch_probe(A, n_iter)
+        ok = bool(torch.equal(o, chol_op.launch_probe_plain(A, n_iter)))
+        print(f"  launch probe n_iter={n_iter}: equal to A[:8, :128] + n_iter: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("launch probe disagrees with its plain version")
+    errs["launch_probe"] = 0.0
+
+    params = study.study_params(dev)
+    p = torch.tensor([study.STUDY_LSIG, study.STUDY_LL, 0.0], device=dev)
+    errs["se_gram_study"] = 0.0
+    for n in (1024, N_STUDY_GRAM):
+        X = torch.randn((n, D), generator=g, dtype=torch.float32, device=dev)
+        K = study.se_gram_study(X, params)
+        err = float((K - gram_op.gram_plain(gram_op.SE, p, X)).abs().max())
+        tol = study.GRAM_ATOL * math.exp(2 * study.STUDY_LSIG)
+        diag_ok = bool((K.diagonal() == torch.exp(params[0])).all())
+        ok = err <= tol and diag_ok
+        print(f"  study SE gram n={n}: max|K - plain| = {err:.3e} (atol {tol:.1e}), "
+              f"diagonal exactly e^p0: {diag_ok} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("study SE gram disagrees with its plain version")
+        errs["se_gram_study"] = max(errs["se_gram_study"], err)
+
+    errs["chol_inv_panel"] = 0.0
+    for B in (256, 512, 1024):
+        Ap = study.spd_test_matrix(B, 64, dev, seed=B)
+        L, Linv = chol_op.chol_inv_panel(Ap)
+        L0, Linv0 = chol_op.chol_inv_panel_plain(Ap)
+        upper_ok = bool((torch.triu(L, 1) == 0).all() and (torch.triu(Linv, 1) == 0).all())
+        if not upper_ok:
+            fail(f"chol_inv_panel B={B}: nonzero above the diagonal")
+        for what, got, ref in (("L", L, L0), ("L^-1", Linv, Linv0)):
+            err = check_rel(f"panel B={B} {what} vs plain", got, ref, study.PANEL_RTOL)
+            errs["chol_inv_panel"] = max(errs["chol_inv_panel"], err)
+
+    Ks = study.spd_test_matrix(2048, 64, dev, seed=7)
+    Ks_before = Ks.clone()
+    L = chol_op.single_launch_cholesky(Ks, B=256, R=512)
+    if not torch.equal(Ks, Ks_before):
+        fail("single_launch_cholesky changed its input")
+    if not bool((torch.triu(L, 1) == 0).all()):
+        fail("single_launch_cholesky: nonzero above the diagonal")
+    errs["single_launch_cholesky"] = check_rel(
+        "single launch n=2048 vs plain", L,
+        chol_op.single_launch_cholesky_plain(Ks, B=256, R=512), 1e-5)
+    check_rel("single launch n=2048 vs f64 cholesky_ex", L,
+              torch.linalg.cholesky_ex(Ks.double())[0], 1e-4)
+    return errs
+
+
+def phase_study_path(dev) -> dict:
+    """The study's path once at full size, counts set to 0 just before and
+    read just after; the factors checked against f32 cholesky_ex (the
+    study's 1e-4 relative error). Returns the launch counts."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.randn((N_STUDY_GRAM, D), generator=g, dtype=torch.float32, device=dev)
+    A = torch.ones((512, 512), dtype=torch.float32, device=dev)
+    K = study.spd_test_matrix(N_STUDY, 256, dev)
+    params = study.study_params(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    Kg = study.se_gram_study(X, params)
+    o = chol_op.launch_probe(A, 512)
+    Lp = study.cholesky_blocked_panels(K, block=STUDY_BLOCK)
+    Ls = chol_op.single_launch_cholesky(K)
+    torch.cuda.synchronize()
+    counts = {"se_gram_study": gram_op.LAUNCHES["gram"], **chol_op.LAUNCHES}
+    print(f"  launches on the study path: {counts}; the single launch's cooperative grid: "
+          f"{chol_op._grid_blocks()} blocks of 256 threads")
+    expect = {"se_gram_study": 1, "launch_probe": 1,
+              "chol_inv_panel": N_STUDY // STUDY_BLOCK, "single_launch_cholesky": 1}
+    if counts != expect:
+        fail(f"study path launches {counts}, expected {expect}")
+    if not (bool(torch.isfinite(Kg).all()) and bool((o == 513.0).all())):
+        fail("study gram not finite or probe wrong")
+    L0 = torch.linalg.cholesky_ex(K)[0]
+    check_rel(f"cholesky_blocked_panels n={N_STUDY} vs f32 cholesky_ex", Lp, L0, 1e-4)
+    check_rel(f"single launch n={N_STUDY} vs f32 cholesky_ex", Ls, L0, 1e-4)
+    if not bool((torch.triu(Ls, 1) == 0).all()):
+        fail("single_launch_cholesky: nonzero above the diagonal at full size")
+    return counts
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def bound(nbytes, flops):
+    """(ms, 'bytes' or 'operations'): the larger of bytes at the memory rate
+    and f32 operations at the non-tensor rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def once_ms(fn, *args):
+    """(fn(*args), milliseconds of that one call between two CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_study_times(dev, card) -> dict:
+    """The study's timings, then the plain versions' and the bounds; returns
+    the table rows' numbers by kernel. A row's `ms` is the kernel's own time
+    on the card; where the host sets a call's time (the probe, the study
+    gram) the time per call stands beside it as `call_ms`."""
+    print(f"  launch probe (best of 2 x 50 launches, CUDA events), card {card}")
+    probe = study.study_launch_overhead(dev)
+    print("  study gram (best of 2 x 10)")
+    grams = study.study_gram(dev, reps=10)
+    print("  panel (best of 2 x 3)")
+    panels = study.study_panel(dev, reps=3)
+    print("  single launch (best of 2 x 3)")
+    single = study.study_single_launch(dev, n=N_STUDY)
+    print("  full factorization four ways (best of 2 x 3)")
+    full = study.study_full(dev, n=N_STUDY)
+
+    A = torch.ones((512, 512), dtype=torch.float32, device=dev)
+    Ap = study.spd_test_matrix(STUDY_BLOCK, 64, dev)
+    K = study.spd_test_matrix(N_STUDY, 256, dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    X = torch.randn((N_STUDY_GRAM, D), generator=g, dtype=torch.float32, device=dev)
+    _, plain_panel_ms = once_ms(chol_op.chol_inv_panel_plain, Ap)
+    Ls_plain, plain_single_ms = once_ms(chol_op.single_launch_cholesky_plain, K)
+    check_rel(f"single launch n={N_STUDY} vs plain", chol_op.single_launch_cholesky(K),
+              Ls_plain, study.PANEL_RTOL)
+    plain = {
+        "launch_probe": time_ms(lambda: chol_op.launch_probe_plain(A, 512)),
+        "se_gram_study": grams[N_STUDY_GRAM][2],
+        "chol_inv_panel": plain_panel_ms,
+        "single_launch_cholesky": plain_single_ms,
+    }
+    cdist_ms = time_ms(lambda: torch.cdist(X, X), reps=10)
+    # the probe's adds each wait for the last: one per 4 cycles at the
+    # card's maximum SM clock, however many cores the card has
+    clock_hz = sm_clock_hz()
+    chain_ms = {n: 1e3 * 4 * n / clock_hz for n in probe}
+    probe_enqueue_ms = enqueue_ms(lambda: chol_op.launch_probe(A, 512), reps=50)
+    for n, (ms, dev_ms) in probe.items():
+        print(f"  probe n_iter={n}: {1e3 * ms:.3f} us per call, {1e3 * dev_ms:.3f} us on the "
+              f"card; its chain of {n} dependent adds at 4 cycles each at the maximum SM "
+              f"clock ({clock_hz / 1e9:.3f} GHz): {1e3 * chain_ms[n]:.3f} us")
+    print(f"  probe n_iter=512: host enqueue of one call {1e3 * probe_enqueue_ms:.3f} us")
+    probe_bytes_ms = bound(2 * 8 * 128 * 4, 0)[0]
+    probe_bound = ((chain_ms[512], "operations") if chain_ms[512] >= probe_bytes_ms
+                   else (probe_bytes_ms, "bytes"))
+    B, n = STUDY_BLOCK, N_STUDY
+    rows = {
+        "se_gram_study": (grams[N_STUDY_GRAM][1], plain["se_gram_study"],
+                          gram_bound_ms(N_STUDY_GRAM, N_STUDY_GRAM, D, 4, True), None,
+                          {"call_ms": grams[N_STUDY_GRAM][0], "cdist_ms": cdist_ms,
+                           "call_ms_by_n": {k: v[0] for k, v in grams.items()},
+                           "ms_by_n": {k: v[1] for k, v in grams.items()}}),
+        "chol_inv_panel": (panels[f"B={B}"][0], plain["chol_inv_panel"],
+                           bound(12 * B * B, 2 * B**3 / 3), panels[f"B={B}"][2],
+                           {"ms_by_case": {k: v[0] for k, v in panels.items()},
+                            "library_ms_by_case": {k: v[2] for k, v in panels.items()},
+                            "cholesky_ex_ms_by_case": {k: v[1] for k, v in panels.items()}}),
+        "launch_probe": (probe[512][1], plain["launch_probe"], probe_bound, None,
+                         {"call_ms": probe[512][0],
+                          "call_ms_by_n_iter": {n: v[0] for n, v in probe.items()},
+                          "ms_by_n_iter": {n: v[1] for n, v in probe.items()},
+                          "enqueue_ms": probe_enqueue_ms}),
+        "single_launch_cholesky": (single["single"], plain["single_launch_cholesky"],
+                                   bound(8 * n * n, n**3 / 3), full["cholesky_ex"],
+                                   {"full_ms": full}),
+    }
+    for name, (ms, pl, (b_ms, b_by), lib, _) in rows.items():
+        lib_s = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"  {name}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"plain {pl:.4f} ms, library {lib_s}")
+    return rows
 
 
 def main() -> int:
@@ -341,6 +570,18 @@ def main() -> int:
         for key, ms, calls in rows:
             print(f"    {ms:9.4f} ms  {calls:3d} x {key[:90]}")
 
+    # 9. the study's kernels against their plain versions
+    print("phase 9: Cholesky study kernels vs plain versions")
+    study_errs = phase_study_vs_plain(dev)
+
+    # 10. the study's path at full size, with its launch counts
+    print(f"phase 10: the study's path at n = {N_STUDY}")
+    study_launches = phase_study_path(dev)
+
+    # 11. the study's timings
+    print(f"phase 11: study timings, card {card}")
+    study_rows = phase_study_times(dev, card)
+
     kern_ms, plain_ms, cdist_ms, bound_ms, bound_by = gram_rows[N_HEAD]
     table = {"kernels": [{
         "name": "gram",
@@ -356,6 +597,28 @@ def main() -> int:
         "library_ms": None,
         "cdist_ms": cdist_ms,
     }]}
+    study_src = {
+        "se_gram_study": ("csrc/gram.cu", "perf/pallas_cholesky_study.py:102"),
+        "chol_inv_panel": ("csrc/cholesky.cu", "perf/pallas_cholesky_study.py:164"),
+        "launch_probe": ("csrc/cholesky.cu", "perf/pallas_cholesky_study.py:257"),
+        "single_launch_cholesky": ("csrc/cholesky.cu", "perf/pallas_cholesky_study.py:352"),
+    }
+    for name, (src, replaces) in study_src.items():
+        ms, pl, (b_ms, b_by), lib, extra = study_rows[name]
+        table["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": f"gaussianprocesses_jl_tpu_torch/{src}",
+            "replaces": replaces,
+            "launches": study_launches[name],
+            "max_abs_err": study_errs[name],
+            "ms": ms,
+            "plain_ms": pl,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib,
+            **extra,
+        })
     print(json.dumps(table))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ the tests. This slice carries the exact-GP path: kernels and means with the
 flat-parameter protocol, the GPE log target and its gradient, prediction and
 the L-BFGS-B optimizer. Stationary grams run on a hand-written CUDA kernel
 (`csrc/gram.cu`). Models run on the CUDA device unless built with
-`device="cpu"`.
+`device="cpu"`. The Cholesky study (`perf/cholesky_study.py`) drives the
+panel, single-launch and launch-probe kernels of `csrc/cholesky.cu`; the
+package's own factorization does not route through them.
 
     import gaussianprocesses_jl_tpu_torch as gp
     k = gp.SE(0.0, 0.0) + gp.RQ(0.0, 0.0, 0.0)

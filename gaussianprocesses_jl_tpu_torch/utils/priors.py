@@ -156,10 +156,16 @@ class Beta(Prior):
     b: float = 1.0
 
     def logpdf(self, x):
+        """As `jax.scipy.stats.beta.logpdf`: -inf outside [0, 1] and NaN
+        through it, where a zero exponent contributes 0 even at x = NaN (so
+        Beta(1, 1).logpdf(nan) is 0), unlike `torch.xlogy`."""
         betaln = math.lgamma(self.a) + math.lgamma(self.b) - math.lgamma(self.a + self.b)
-        lp = (torch.xlogy(x.new_tensor(self.a - 1.0), x)
-              + torch.special.xlog1py(x.new_tensor(self.b - 1.0), -x) - betaln)
-        return _where((x >= 0) & (x <= 1), lp, -math.inf)
+
+        def xlog(c, t):
+            return torch.zeros_like(t) if c == 0.0 else c * t
+
+        lp = xlog(self.a - 1.0, torch.log(x)) + xlog(self.b - 1.0, torch.log1p(-x)) - betaln
+        return torch.where((x < 0) | (x > 1), torch.full_like(lp, -math.inf), lp)
 
     def sample(self, generator=None):
         ga = _gamma(self.a, generator)

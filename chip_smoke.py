@@ -23,17 +23,20 @@ Phases, each of which exits non-zero on the first failure:
      operator, and the device-busy share);
   9. the Cholesky study's kernels (csrc/cholesky.cu) and its SE gram against
      their plain versions on the card: the launch probe exactly, the study
-     gram within f32 rounding, the panel at B = 256, 512, 1024, the single
-     launch at n = 2048 (and against an f64 factorization);
+     gram within f32 rounding, the panel (one cooperative launch over the
+     card) at B = 256, 512, 1024 and on an indefinite panel (NaN where the
+     plain version has it, no hang), the single launch at n = 2048 (and
+     against an f64 factorization);
  10. the study's path at full size: the study gram (n = 3072), the probe,
      `cholesky_blocked_panels` at n = 10240, block = 1024 (10 panel
      launches) and the single launch at n = 10240 (1 launch), both against
      f32 `torch.linalg.cholesky_ex`;
  11. the study's timings (perf/cholesky_study.py, whose experiments check
      every size they time: the study gram up to n = 16384, the panel at
-     B = 3072 on the headline's SE gram against its plain version and f64),
-     the plain versions' times, and the single launch at n = 10240 against
-     its plain version.
+     B = 3072 on the headline's SE gram against its plain version and f64;
+     the panel also on the largest cooperative grid, and the fit of its
+     times to a per-step cost and a product rate), the plain versions'
+     times, and the single launch at n = 10240 against its plain version.
 The kernel launch counts are set to 0 before each main-path call and read
 after it. The last three lines are the kernel table (JSON), the card, and
 {"ok": true, "device": {...}}.
@@ -309,6 +312,23 @@ def phase_study_vs_plain(dev) -> dict:
         for what, got, ref in (("L", L, L0), ("L^-1", Linv, Linv0)):
             err = check_rel(f"panel B={B} {what} vs plain", got, ref, study.PANEL_RTOL)
             errs["chol_inv_panel"] = max(errs["chol_inv_panel"], err)
+    # the schedule holds on any grid: one block, a few, the largest; and at
+    # one tile (no grid sync but the kernel's end)
+    Ap = study.spd_test_matrix(512, 64, dev, seed=512)
+    L0, Linv0 = chol_op.chol_inv_panel_plain(Ap)
+    for grid in (1, 2, 7, chol_op.max_grid_blocks("panel")):
+        syncs = torch.zeros(1, dtype=torch.int32, device=dev)
+        L, Linv = chol_op.chol_inv_panel_on_grid(Ap, grid, syncs)
+        for what, got, ref in (("L", L, L0), ("L^-1", Linv, Linv0)):
+            check_rel(f"panel B=512 on {grid} blocks {what} vs plain", got, ref, study.PANEL_RTOL)
+        if int(syncs.item()) != chol_op.panel_grid_syncs(512):
+            fail(f"panel B=512 on {grid} blocks: {int(syncs.item())} grid syncs counted, "
+                 f"the schedule has {chol_op.panel_grid_syncs(512)}")
+    A1 = study.spd_test_matrix(64, 64, dev, seed=1)
+    for what, got, ref in zip(("L", "L^-1"), chol_op.chol_inv_panel(A1, T=64),
+                              chol_op.chol_inv_panel_plain(A1, T=64)):
+        check_rel(f"panel B=64 {what} vs plain", got, ref, study.PANEL_RTOL)
+    phase_indefinite_panel(dev)
 
     Ks = study.spd_test_matrix(2048, 64, dev, seed=7)
     Ks_before = Ks.clone()
@@ -323,6 +343,27 @@ def phase_study_vs_plain(dev) -> dict:
     check_rel("single launch n=2048 vs f64 cholesky_ex", L,
               torch.linalg.cholesky_ex(Ks.double())[0], 1e-4)
     return errs
+
+
+def phase_indefinite_panel(dev) -> None:
+    """The panel kernel on an indefinite panel (pivot 200 of 256 negative):
+    the launch returns, NaN stands where the plain version has it on and
+    below the diagonal, and the leading 128 x 128, before the bad pivot, is
+    finite and within 1e-5 of max|.| of the plain version's."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    W = torch.randn((256, 64), generator=g, dtype=torch.float32, device=dev)
+    A = W @ W.T + 256 * torch.eye(256, dtype=torch.float32, device=dev)
+    A[200, 200] = -1e4
+    L, Linv = chol_op.chol_inv_panel(A)
+    torch.cuda.synchronize()  # returns: no block waits at a grid sync
+    for what, got, ref in zip(("L", "L^-1"), (L, Linv), chol_op.chol_inv_panel_plain(A)):
+        same_nan = bool(torch.equal(torch.tril(got).isnan(), torch.tril(ref).isnan()))
+        print(f"  indefinite panel {what}: {int(got.isnan().sum())} NaN, NaN where the plain "
+              f"version has it: {same_nan}")
+        if not (bool(got.isnan().any()) and same_nan):
+            fail(f"indefinite panel: {what} NaN pattern differs from the plain version's")
+        check_rel(f"indefinite panel {what}[:128, :128] vs plain", got[:128, :128],
+                  ref[:128, :128], study.PANEL_RTOL)
 
 
 def phase_study_path(dev) -> dict:
@@ -342,8 +383,9 @@ def phase_study_path(dev) -> dict:
     Ls = chol_op.single_launch_cholesky(K)
     torch.cuda.synchronize()
     counts = {"se_gram_study": gram_op.LAUNCHES["gram"], **chol_op.LAUNCHES}
-    print(f"  launches on the study path: {counts}; the single launch's cooperative grid: "
-          f"{chol_op._grid_blocks()} blocks of 256 threads")
+    print(f"  launches on the study path: {counts}; cooperative grids of 256-thread blocks: "
+          f"panel B={STUDY_BLOCK} {panel_grid(STUDY_BLOCK)}, single launch "
+          f"{chol_op.max_grid_blocks('single_launch')}")
     expect = {"se_gram_study": 1, "launch_probe": 1,
               "chol_inv_panel": N_STUDY // STUDY_BLOCK, "single_launch_cholesky": 1}
     if counts != expect:
@@ -356,6 +398,10 @@ def phase_study_path(dev) -> dict:
     if not bool((torch.triu(Ls, 1) == 0).all()):
         fail("single_launch_cholesky: nonzero above the diagonal at full size")
     return counts
+
+
+def panel_grid(B: int) -> int:
+    return chol_op.panel_grid_blocks(B, chol_op.max_grid_blocks("panel"))
 
 
 def sm_clock_hz() -> float:
@@ -395,6 +441,7 @@ def phase_study_times(dev, card) -> dict:
     grams = study.study_gram(dev, reps=10)
     print("  panel (best of 2 x 3)")
     panels = study.study_panel(dev, reps=3)
+    c_step_ms, panel_rate = study.panel_fit(panels.values())
     print("  single launch (best of 2 x 3)")
     single = study.study_single_launch(dev, n=N_STUDY)
     print("  full factorization four ways (best of 2 x 3)")
@@ -438,9 +485,15 @@ def phase_study_times(dev, card) -> dict:
                            "ms_by_n": {k: v[1] for k, v in grams.items()}}),
         "chol_inv_panel": (panels[f"B={B}"][0], plain["chol_inv_panel"],
                            bound(12 * B * B, 2 * B**3 / 3), panels[f"B={B}"][2],
-                           {"ms_by_case": {k: v[0] for k, v in panels.items()},
-                            "library_ms_by_case": {k: v[2] for k, v in panels.items()},
-                            "cholesky_ex_ms_by_case": {k: v[1] for k, v in panels.items()}}),
+                           {"grid_blocks": panels[f"B={B}"].grid_blocks,
+                            "grid_syncs": panels[f"B={B}"].grid_syncs,
+                            "ms_by_case": {k: v.ms for k, v in panels.items()},
+                            "bound_ms_by_case": {k: bound(12 * v.B**2, 2 * v.B**3 / 3)[0]
+                                                 for k, v in panels.items()},
+                            "library_ms_by_case": {k: v.library_ms for k, v in panels.items()},
+                            "cholesky_ex_ms_by_case": {k: v.cholesky_ex_ms
+                                                       for k, v in panels.items()},
+                            "fit_c_step_ms": c_step_ms, "fit_rate_tflops": panel_rate}),
         "launch_probe": (probe[512][1], plain["launch_probe"], probe_bound, None,
                          {"call_ms": probe[512][0],
                           "call_ms_by_n_iter": {n: v[0] for n, v in probe.items()},

@@ -1,8 +1,9 @@
 // The Cholesky study's kernels for Hopper (sm_90a), f32:
 //
-//   panel_kernel         L and L^-1 of one SPD B x B panel in one launch.
-//                        Replaces `_panel_kernel` / `chol_inv_panel` in
-//                        perf/pallas_cholesky_study.py.
+//   panel_kernel         L and L^-1 of one SPD B x B panel in one cooperative
+//                        launch over the card. Replaces `_panel_kernel` /
+//                        `chol_inv_panel` in perf/pallas_cholesky_study.py
+//                        (:164-234).
 //   single_launch_kernel a whole left-looking Cholesky in one launch, in place.
 //                        Replaces `_single_launch_kernel` /
 //                        `single_launch_cholesky` there.
@@ -11,39 +12,62 @@
 //                        of `study_launch_overhead` there.
 //
 // What bounds them. The panel does 2B^3/3 flops (Cholesky B^3/3, inverse
-// B^3/3): 10.7 us at B = 1024 at the 67 TFLOP/s non-tensor f32 rate. The
-// factorization does n^3/3: 5.3 ms at n = 10240. Both also carry a chain of B
-// (or n) dependent column steps that no amount of parallel hardware shortens;
-// that chain is why the TPU panel lost to XLA. The probe is bound by its
-// dependent-add latency (~4 cycles an add), not by bytes or flops.
+// B^3/3): 10.7 us at B = 1024 at the 67 TFLOP/s non-tensor f32 rate. It moves
+// 12B^2 bytes (A read, L and L^-1 written, once each): 3.8 us at B = 1024 at
+// 3.35 TB/s, so operations bound it. Beyond both, it
+// carries a chain of nt = B/64 diagonal tiles, each factored after the last,
+// with two grid syncs a step. The factorization does n^3/3: 5.3 ms at
+// n = 10240, with a chain of n dependent column steps. The probe is bound by
+// its dependent-add latency (~4 cycles an add), not by bytes or flops.
 //
-// Design (simple and correct first; no wgmma or TMA yet):
+// Design (simple and correct first; f32 SIMT, no wgmma, TMA or TF32):
 // - Every product goes through `gemm_tile`: one block of 256 threads computes
 //   a 64 x 64 output tile, 4 x 4 outputs per thread, staging 16-deep slices of
 //   both operands in shared memory. Operands and results live in device
 //   memory: a B = 1024 panel is 4 MB a matrix, far above a block's 227 KB of
 //   shared memory (the TPU kept it in VMEM), but it stays in the 50 MB L2.
-// - `chol_inv_block` is the panel algorithm for one block: micro-panels of 64
-//   columns (the TPU used 128). For each, a correction product against the
-//   finished columns; the 64 x 64 diagonal tile goes to shared memory for the
-//   serial column chain (rank-1 updates with __syncthreads between columns)
-//   and its inverse (row elimination); the rows below are multiplied by that
-//   inverse. The off-diagonal tiles of L^-1 are assembled at the end as on
-//   the TPU: L^-1[i,j] = -D_i (L[i, j:i] L^-1[j:i, j]). The whole panel runs
-//   in one block because the column chain is a serial dependency.
+// - `chol_inv_tile` factors one 64 x 64 diagonal tile in one block, each
+//   thread holding a 4 x 4 piece in registers: the serial column chain
+//   (rank-1 updates), then its inverse by row elimination, with one
+//   __syncthreads a column or row (the column or row is published in a
+//   double-buffered line of shared memory). The chain is the panel's
+//   critical path, so it is kept to 128 block barriers and 16 FMAs a thread
+//   each.
+// - `panel_kernel` is a right-looking tiled Cholesky over the whole card, one
+//   cooperative launch, its grid the most tiles any phase has (capped by what
+//   fits on the card at once). The chain is answered by look-ahead: step k's
+//   phase (a) has block 0 apply step k-1's trailing update to tile (k, k)
+//   alone and factor it, while the other blocks apply that update to every
+//   other trailing tile, so the chain overlaps the products. Phase (b) shares
+//   out the panel apply L[r, k] <- L[r, k] D_k^T (r > k) and row k of L^-1,
+//   L^-1[k, j] = -D_k W[k, j] (j < k), one tile product a block. L^-1 is
+//   right-looking too: W[i, j] = sum_{m=j}^{i-1} L[i, m] L^-1[m, j] gathers
+//   one term a step, in phase (a) beside the trailing update, as soon as
+//   column m of L and row m of L^-1 are final; it lives in L^-1's own tile.
+//   (Forming W[k, j] whole in phase (b) of step k, k - j products in one
+//   block, puts a chain of ~nt^2/2 tile products on the critical path: such
+//   a variant took 0.98 ms at B = 1024 against 0.49 ms this way on an H100
+//   80GB HBM3 at 700 W.) No serial L^-1 pass is left. Two grid syncs a
+//   step, 2 nt - 1 in all; the operation bound is answered by sharing every
+//   product out over the grid. No block leaves the loop early: a NaN pivot
+//   spreads through the updates.
+// - `chol_inv_block` is the panel algorithm for one block (micro-panels of
+//   64 columns, each a correction product, `chol_inv_tile`, and the apply
+//   below; then the off-diagonal tiles of L^-1). Only the single launch uses
+//   it now, for its diagonal blocks.
 // - The TPU's single-launch kernel relied on its grid running in order, one
 //   panel per step. CUDA blocks run in no order, so the factorization is one
 //   cooperative launch sized to the blocks that fit on the card at once, with
 //   grid.sync() between the three phases of each panel: the correction
 //   product over all blocks, the diagonal block's Cholesky and inverse in
-//   block 0 (the same `chol_inv_block`), and the below-diagonal apply over all
+//   block 0 (`chol_inv_block`), and the below-diagonal apply over all
 //   blocks. The panel column the TPU held in VMEM is a device scratch (n, B).
 // - The probe's adds are volatile inline assembly, so the compiler can fold
 //   nothing and the time grows with n_iter.
 //
 // Every size is a multiple of 64; the wrappers in ops/cholesky_kernels.py
-// check shapes, allocate every output and scratch, and launch on the caller's
-// stream.
+// check shapes, allocate every output and scratch, size the cooperative
+// grids, and launch on the caller's stream.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -65,8 +89,9 @@ struct __align__(16) GemmSmem {
 };
 
 struct PanelSmem {
-  float ld[TS][TS + 1];  // diagonal tile, then its Cholesky factor
-  float x[TS][TS + 1];   // the factor's inverse
+  float ld[TS][TS + 1];  // the diagonal tile's factor, for its inverse
+  float dinv[TS];        // 1 / its diagonal
+  float line[2][TS];     // the chain's column j, the inverse's row k, by parity
 };
 
 // One TS x TS output tile, by the whole block:
@@ -129,6 +154,107 @@ __device__ void gemm_tile(float* out, int ldo, const float* cin, int ldcin,
   }
 }
 
+// L and L^-1 of one TS x TS diagonal tile, by one block. Each thread holds a
+// 4 x 4 piece of the tile in registers, as in `gemm_tile`. The column chain:
+// for each column j the threads holding it publish it in shared memory, and
+// every thread scales it by rsqrt of the pivot (NaN on a non-positive one)
+// and takes its rank-1 update from its own piece. The inverse, by row
+// elimination from X = I: for each k the threads holding row k scale it by
+// 1/L[k][k] (a reciprocal taken once keeps IEEE division's long sequence
+// out of the chain) and publish it, and every thread takes L[i][k] times it
+// from its rows i > k. `line` is double-buffered, so each column or row
+// costs one __syncthreads, and the updates are selects, not branches. The
+// factor goes to `L`, its inverse to `Li`, each with exact zeros above the
+// diagonal. `src` may alias `L`; the caller syncs the block before, so that
+// `src` is complete.
+__device__ void chol_inv_tile(const float* src, int lds, float* L, int ldl, float* Li, int ldi,
+                              PanelSmem& ps) {
+  const int r0 = threadIdx.x / 16 * 4, c0 = threadIdx.x % 16 * 4;
+  float a[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[r][c] = src[(int64_t)(r0 + r) * lds + c0 + c];
+
+  for (int jb = 0; jb < TS; jb += 4) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = jb + jj;
+      float* col = ps.line[j & 1];
+      if (c0 == jb) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) col[r0 + r] = a[r][jj];
+      }
+      __syncthreads();
+      const float rs = rsqrtf(col[j]);
+      float ci[4], ck[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float v = col[r0 + r] * rs;
+        ci[r] = r0 + r >= j ? v : 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ck[c] = col[c0 + c] * rs;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float u = fmaf(-ci[r], ck[c], a[r][c]);
+          a[r][c] = c0 + c > j ? u : (c0 + c == j ? ci[r] : a[r][c]);
+        }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float v = c0 + c <= r0 + r ? a[r][c] : 0.f;
+      ps.ld[r0 + r][c0 + c] = v;
+      L[(int64_t)(r0 + r) * ldl + c0 + c] = v;
+      if (c0 + c == r0 + r) ps.dinv[r0 + r] = 1.f / v;
+    }
+  __syncthreads();
+
+  float x[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) x[r][c] = r0 + r == c0 + c ? 1.f : 0.f;
+  for (int kb = 0; kb < TS; kb += 4) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = kb + kk;
+      float* row = ps.line[k & 1];
+      if (r0 == kb) {
+        const float d = ps.dinv[k];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          x[kk][c] *= d;
+          row[c0 + c] = x[kk][c];
+        }
+      }
+      __syncthreads();
+      float xk[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xk[c] = row[c0 + c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float l = ps.ld[r0 + r][k];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float u = fmaf(-l, xk[c], x[r][c]);
+          x[r][c] = r0 + r > k ? u : x[r][c];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) Li[(int64_t)(r0 + r) * ldi + c0 + c] = x[r][c];
+  __syncthreads();
+}
+
 // L and L^-1 of the SPD B x B matrix A (its lower triangle is read), by one
 // block. L and Li get exact zeros above the diagonal. A may not alias L or Li.
 __device__ void chol_inv_block(const float* A, int lda, float* L, int ldl,
@@ -157,47 +283,9 @@ __device__ void chol_inv_block(const float* A, int lda, float* L, int ldl,
     }
     __syncthreads();
 
-    // 2. the diagonal tile's column chain, in shared memory
-    for (int idx = tid; idx < TS * TS; idx += NT)
-      ps.ld[idx / TS][idx % TS] = L[(int64_t)(j0 + idx / TS) * ldl + j0 + idx % TS];
-    __syncthreads();
-    for (int j = 0; j < TS; ++j) {
-      const float rs = rsqrtf(ps.ld[j][j]);  // NaN on a non-positive pivot
-      __syncthreads();
-      if (tid >= j && tid < TS) ps.ld[tid][j] *= rs;
-      __syncthreads();
-      for (int idx = tid; idx < TS * TS; idx += NT) {
-        const int i = idx / TS, k = idx % TS;
-        if (k > j && k <= i) ps.ld[i][k] -= ps.ld[i][j] * ps.ld[k][j];
-      }
-      __syncthreads();
-    }
-
-    // 3. its inverse by row elimination: X = I, then for each k scale row k
-    //    by 1/ld[k][k] and take ld[i][k] times it from every row i > k
-    for (int idx = tid; idx < TS * TS; idx += NT) {
-      const int i = idx / TS, k = idx % TS;
-      ps.x[i][k] = (i == k) ? 1.f : 0.f;
-      if (k > i) ps.ld[i][k] = 0.f;
-    }
-    __syncthreads();
-    for (int k = 0; k < TS; ++k) {
-      if (tid < TS) ps.x[k][tid] /= ps.ld[k][k];
-      __syncthreads();
-      for (int idx = tid; idx < TS * TS; idx += NT) {
-        const int i = idx / TS, c = idx % TS;
-        if (i > k) ps.x[i][c] -= ps.ld[i][k] * ps.x[k][c];
-      }
-      __syncthreads();
-    }
-
-    // 4. both tiles to device memory
-    for (int idx = tid; idx < TS * TS; idx += NT) {
-      const int i = idx / TS, c = idx % TS;
-      L[(int64_t)(j0 + i) * ldl + j0 + c] = ps.ld[i][c];
-      Li[(int64_t)(j0 + i) * ldi + j0 + c] = ps.x[i][c];
-    }
-    __syncthreads();
+    // 2-4. the diagonal tile's factor and inverse
+    float* d = L + (int64_t)j0 * ldl + j0;
+    chol_inv_tile(d, ldl, d, ldl, Li + (int64_t)j0 * ldi + j0, ldi, ps);
 
     // 5. rows below: L[r, j0:j0+TS] = P[r, :] X^T (in place, one tile wide)
     for (int rt = kt + 1; rt < nt; ++rt) {
@@ -223,11 +311,97 @@ __device__ void chol_inv_block(const float* A, int lda, float* L, int ldl,
   }
 }
 
+// The row i' of the t-th entry of a lower triangle listed row by row:
+// the largest i' with i'(i'+1)/2 <= t.
+__device__ int tri_row(int t) {
+  int i = (int)((sqrtf(8.f * t + 1.f) - 1.f) * 0.5f);
+  while (i * (i + 1) / 2 > t) --i;
+  while ((i + 1) * (i + 2) / 2 <= t) ++i;
+  return i;
+}
+
+// L and L^-1 of the SPD B x B matrix A (its lower triangle is read), over the
+// whole cooperative grid; see the note at the top. A is read-only and L is
+// the work array; the strictly lower tiles of L^-1 hold the running sums
+// W[i, j] = sum_m L[i, m] L^-1[m, j] until row i is final. Tile (i, j) of a
+// matrix M is M[64i:64i+64, 64j:64j+64]. Unless `syncs` is null, block 0 adds
+// the grid syncs it passed to *syncs.
 __global__ void __launch_bounds__(NT)
-panel_kernel(const float* A, float* L, float* Li, int B) {
+panel_kernel(const float* A, float* L, float* Li, int B, int* syncs) {
   __shared__ GemmSmem gs;
   __shared__ PanelSmem ps;
-  chol_inv_block(A, B, L, B, Li, B, B, gs, ps);
+  cg::grid_group grid = cg::this_grid();
+  const int nt = B / TS;
+  const int G = gridDim.x, bid = blockIdx.x;
+  int n_sync = 0;
+  // phase (a): blocks 1.. share out the products while block 0 takes the
+  // diagonal tile; a grid of one block takes both
+  const int nw = G > 1 ? G - 1 : 1, w = G > 1 ? bid - 1 : 0;
+  auto tile = [B](float* M, int i, int j) { return M + ((int64_t)i * B + j) * TS; };
+
+  for (int k = 0; k < nt; ++k) {
+    // (a) tile (k, k), updated by step k-1 and factored, in block 0 ...
+    if (bid == 0) {
+      float* d = tile(L, k, k);
+      if (k > 0) {
+        const float* p = tile(L, k, k - 1);
+        gemm_tile<true>(d, B, d, B, p, B, p, B, TS, -1.f, gs);
+        __syncthreads();
+      }
+      chol_inv_tile(k == 0 ? A : d, B, d, B, tile(Li, k, k), B, ps);
+    }
+    if (k == 0) {
+      // ... beside the set-up: A's lower tiles but (0, 0) into L, zeros
+      // above the diagonal tiles of L and L^-1 and in the sums W
+      for (int64_t idx = (int64_t)bid * NT + threadIdx.x; idx < (int64_t)B * B;
+           idx += (int64_t)G * NT) {
+        const int rt = (int)(idx / B) / TS, ct = (int)(idx % B) / TS;
+        if (ct != rt) Li[idx] = 0.f;
+        if (ct > rt) L[idx] = 0.f;
+        else if (rt > 0) L[idx] = A[idx];
+      }
+    } else if (w >= 0) {
+      // ... beside step k-1's updates, with column k-1 of L and row k-1 of
+      // L^-1 final: the trailing tiles (i, j), k <= j <= i, but (k, k),
+      //   L[i, j] -= L[i, k-1] L[j, k-1]^T,
+      // then the sums W[i, j], i >= k > j, W[i, j] += L[i, k-1] L^-1[k-1, j]
+      const int m = nt - k, n_trail = m * (m + 1) / 2 - 1;
+      for (int t = w; t < n_trail + m * k; t += nw) {
+        if (t < n_trail) {
+          const int ip = tri_row(t + 1), jp = t + 1 - ip * (ip + 1) / 2;
+          float* o = tile(L, k + ip, k + jp);
+          gemm_tile<true>(o, B, o, B, tile(L, k + ip, k - 1), B, tile(L, k + jp, k - 1), B, TS,
+                          -1.f, gs);
+        } else {
+          const int i = k + (t - n_trail) / k, j = (t - n_trail) % k;
+          float* o = tile(Li, i, j);
+          gemm_tile<false>(o, B, o, B, tile(L, i, k - 1), B, tile(Li, k - 1, j), B, TS, 1.f,
+                           gs);
+        }
+      }
+    }
+    grid.sync();
+    ++n_sync;
+
+    // (b) nt - 1 tiles, one product each: row k of L^-1, L^-1[k, j] =
+    // -D_k W[k, j] for j < k (W[k, j] is whole: its last term came in (a)),
+    // then the panel, L[r, k] <- L[r, k] D_k^T for r > k (both in place)
+    const float* D = tile(Li, k, k);
+    for (int t = bid; t < nt - 1; t += G) {
+      if (t < k) {
+        float* o = tile(Li, k, t);
+        gemm_tile<false>(o, B, nullptr, 0, D, B, o, B, TS, -1.f, gs);
+      } else {
+        float* o = tile(L, t + 1, k);
+        gemm_tile<true>(o, B, nullptr, 0, o, B, D, B, TS, 1.f, gs);
+      }
+    }
+    if (k + 1 < nt) {
+      grid.sync();
+      ++n_sync;
+    }
+  }
+  if (syncs != nullptr && bid == 0 && threadIdx.x == 0) *syncs += n_sync;
 }
 
 // out holds a copy of K on entry and L on exit. acc (n, B) is the current
@@ -275,28 +449,46 @@ __global__ void probe_kernel(const float* A, int lda, float* o, int n_iter) {
   for (int r = 0; r < 8; ++r) o[r * 128 + c] = A[(int64_t)r * lda + c] + acc;
 }
 
+// The most blocks of `kernel` that fit on the current device at once: the
+// largest grid a cooperative launch of it accepts.
+template <typename Kernel>
+int max_coresident_blocks(Kernel kernel, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, 0);
+  *blocks = per_sm * sms;
+  return (int)e;
+}
+
+int launch_cooperative(const void* kernel, int grid, void** args, void* stream) {
+  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, 0,
+                                              static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface, bound with ctypes by ops/cholesky_kernels.py. Matrices are
 // contiguous row-major f32; stream is the caller's CUDA stream. Each returns
 // the launch's cudaError_t (0 on success).
 
-// A (B, B) -> L, Li (B, B); B % 64 == 0.
-extern "C" int chol_inv_panel_f32(const float* A, float* L, float* Li, int B, void* stream) {
-  panel_kernel<<<1, NT, 0, static_cast<cudaStream_t>(stream)>>>(A, L, Li, B);
-  return (int)cudaGetLastError();
+// The largest cooperative grid of each kernel on the current device.
+extern "C" int panel_max_blocks(int* blocks) {
+  return max_coresident_blocks(panel_kernel, blocks);
 }
 
-// The most blocks of single_launch_kernel that fit on the current device at
-// once: the largest grid a cooperative launch accepts.
+// A (B, B) -> L, Li (B, B); B % 64 == 0; 1 <= grid <= panel_max_blocks.
+// syncs: null, or one int on the device that gains the launch's grid syncs.
+extern "C" int chol_inv_panel_f32(const float* A, float* L, float* Li, int B, int grid,
+                                  int* syncs, void* stream) {
+  void* args[] = {&A, &L, &Li, &B, &syncs};
+  return launch_cooperative((const void*)panel_kernel, grid, args, stream);
+}
+
 extern "C" int single_launch_max_blocks(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, single_launch_kernel, NT, 0);
-  *blocks = per_sm * sms;
-  return (int)e;
+  return max_coresident_blocks(single_launch_kernel, blocks);
 }
 
 // out (n, n) holds K and receives L; acc (n, B) and linv (B, B) are scratch;
@@ -304,11 +496,7 @@ extern "C" int single_launch_max_blocks(int* blocks) {
 extern "C" int single_launch_cholesky_f32(float* out, float* acc, float* linv, int n, int B,
                                           int grid, void* stream) {
   void* args[] = {&out, &acc, &linv, &n, &B};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)single_launch_kernel, dim3(grid),
-                                              dim3(NT), args, 0,
-                                              static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_cooperative((const void*)single_launch_kernel, grid, args, stream);
 }
 
 // A (>= 8 rows, >= 128 columns, row stride lda) -> o (8, 128).

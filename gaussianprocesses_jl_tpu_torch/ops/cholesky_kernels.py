@@ -18,8 +18,9 @@ import torch
 from . import cuda
 
 __all__ = ["LAUNCHES", "TILE", "launch_probe", "launch_probe_plain",
-           "chol_inv_panel", "chol_inv_panel_plain", "single_launch_cholesky",
-           "single_launch_cholesky_plain"]
+           "chol_inv_panel", "chol_inv_panel_plain", "chol_inv_panel_on_grid",
+           "panel_grid_blocks", "panel_grid_syncs", "max_grid_blocks",
+           "single_launch_cholesky", "single_launch_cholesky_plain"]
 
 # kernel launches by name; each wrapper adds one where it launches
 LAUNCHES = {"launch_probe": 0, "chol_inv_panel": 0, "single_launch_cholesky": 0}
@@ -35,7 +36,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of csrc/cholesky.cu and their argument types
 _ARGTYPES = {
     "launch_probe_f32": [_P, _I, _P, _I, _P],
-    "chol_inv_panel_f32": [_P, _P, _P, _I, _P],
+    "panel_max_blocks": [ctypes.POINTER(_I)],
+    "chol_inv_panel_f32": [_P, _P, _P, _I, _I, _P, _P],
     "single_launch_max_blocks": [ctypes.POINTER(_I)],
     "single_launch_cholesky_f32": [_P, _P, _P, _I, _I, _I, _P],
 }
@@ -147,13 +149,55 @@ def chol_inv_panel_plain(A: torch.Tensor, T: int = 128) -> tuple:
     return L, Linv
 
 
+def panel_grid_blocks(B: int, max_blocks: int) -> int:
+    """The panel kernel's grid: the most tile products any of its phases
+    has, capped by the blocks that fit on the card at once. That phase is
+    step 1's (a): the diagonal tile, the trailing tiles and the L^-1 sums,
+    (nt - 1)(nt + 2) / 2 with nt = B / 64. A grid sync costs more the
+    larger the grid, so no block is launched to stay idle."""
+    nt = B // TILE
+    return max(1, min(max_blocks, (nt - 1) * (nt + 2) // 2))
+
+
+def panel_grid_syncs(B: int) -> int:
+    """Grid syncs the panel schedule has: two a 64-wide step, none after
+    the last. The kernel counts those it passes (`chol_inv_panel_on_grid`'s
+    `syncs`)."""
+    return 2 * (B // TILE) - 1
+
+
+def chol_inv_panel_on_grid(A: torch.Tensor, grid: int, syncs: torch.Tensor | None = None) -> tuple:
+    """(L, L^-1) of the f32 CUDA matrix A (B % 64 == 0) from one cooperative
+    launch of the panel kernel over `grid` blocks (1 <= grid <=
+    max_grid_blocks("panel")). `chol_inv_panel` sizes the grid itself; this
+    entry lets a measurement choose it. `syncs`, an int32 tensor of one
+    element on A's device, gains the grid syncs the kernel passed."""
+    B = _square("chol_inv_panel", A)
+    if A.device.type != "cuda" or A.dtype != _F32 or B % TILE or not 1 <= grid:
+        raise ValueError(f"chol_inv_panel_on_grid: need an f32 CUDA matrix with B % {TILE} == 0 "
+                         f"and grid >= 1, got {A.dtype} on {A.device}, B = {B}, grid = {grid}")
+    if syncs is not None and (syncs.dtype != torch.int32 or syncs.numel() != 1
+                              or syncs.device != A.device):
+        raise ValueError(f"chol_inv_panel_on_grid: syncs must be one int32 on {A.device}, got "
+                         f"{syncs.dtype} of {syncs.numel()} elements on {syncs.device}")
+    A = A.contiguous()
+    L = torch.empty((B, B), dtype=_F32, device=A.device)
+    Linv = torch.empty((B, B), dtype=_F32, device=A.device)
+    _launch("chol_inv_panel_f32", "chol_inv_panel", A.device,
+            A.data_ptr(), L.data_ptr(), Linv.data_ptr(), B, int(grid),
+            None if syncs is None else syncs.data_ptr())
+    return L, Linv
+
+
 def chol_inv_panel(A: torch.Tensor, T: int = 128) -> tuple:
-    """(L, L^-1) of one SPD B x B panel, f32, in one launch of one block.
+    """(L, L^-1) of one SPD B x B panel, f32, with exact zeros above the
+    diagonal (NaN on an indefinite panel), in one cooperative launch over
+    the card (`panel_grid_blocks` blocks).
 
     `T` is the study's micro-panel width: the plain version runs its
     algorithm with it, and B % T must be 0 (the study silently dropped the
-    tail). The CUDA kernel's micro-panels are 64 wide whatever T is, so on
-    the card B must also be a multiple of 64."""
+    tail). The CUDA kernel's tiles are 64 wide whatever T is, so on the
+    card B must also be a multiple of 64."""
     B = _square("chol_inv_panel", A)
     if T <= 0 or B % T:
         raise ValueError(f"chol_inv_panel: B = {B} is not a multiple of T = {T}")
@@ -162,12 +206,9 @@ def chol_inv_panel(A: torch.Tensor, T: int = 128) -> tuple:
         return chol_inv_panel_plain(A, T)
     if B % TILE:
         raise ValueError(f"chol_inv_panel: the kernel needs B % {TILE} == 0, got B = {B}")
-    A = A.contiguous()
-    L = torch.empty((B, B), dtype=_F32, device=A.device)
-    Linv = torch.empty((B, B), dtype=_F32, device=A.device)
-    _launch("chol_inv_panel_f32", "chol_inv_panel", A.device,
-            A.data_ptr(), L.data_ptr(), Linv.data_ptr(), B)
-    return L, Linv
+    with torch.cuda.device(A.device):
+        grid = panel_grid_blocks(B, max_grid_blocks("panel"))
+    return chol_inv_panel_on_grid(A, grid)
 
 
 # ---------------------------------------------------------------------------
@@ -195,19 +236,22 @@ def single_launch_cholesky_plain(K: torch.Tensor, B: int = 256, R: int = 1024) -
     return out
 
 
-_GRID_BLOCKS: dict = {}  # device index -> largest cooperative grid
+_MAX_BLOCKS: dict = {}  # (kernel, device index) -> largest cooperative grid
 
 
-def _grid_blocks() -> int:
-    dev = torch.cuda.current_device()
-    if dev not in _GRID_BLOCKS:
+def max_grid_blocks(kernel: str) -> int:
+    """The most blocks of the cooperative kernel `kernel` ("panel" or
+    "single_launch") that fit on the current CUDA device at once: the
+    largest grid its launch accepts. Queried once per device."""
+    key = (kernel, torch.cuda.current_device())
+    if key not in _MAX_BLOCKS:
         blocks = ctypes.c_int(0)
-        fn = _entry("single_launch_max_blocks")
-        _raise_on(fn(ctypes.byref(blocks)), "single_launch_cholesky occupancy query")
+        _raise_on(_entry(f"{kernel}_max_blocks")(ctypes.byref(blocks)),
+                  f"{kernel} occupancy query")
         if blocks.value < 1:
-            raise RuntimeError("single_launch_cholesky: no block of the kernel fits on the card")
-        _GRID_BLOCKS[dev] = blocks.value
-    return _GRID_BLOCKS[dev]
+            raise RuntimeError(f"{kernel}: no block of the kernel fits on the card")
+        _MAX_BLOCKS[key] = blocks.value
+    return _MAX_BLOCKS[key]
 
 
 def single_launch_cholesky(K: torch.Tensor, B: int = 256, R: int = 1024) -> torch.Tensor:
@@ -233,7 +277,7 @@ def single_launch_cholesky(K: torch.Tensor, B: int = 256, R: int = 1024) -> torc
     acc = torch.empty((n, B), dtype=_F32, device=K.device)
     linv = torch.empty((B, B), dtype=_F32, device=K.device)
     with torch.cuda.device(K.device):
-        grid = _grid_blocks()
+        grid = max_grid_blocks("single_launch")
     _launch("single_launch_cholesky_f32", "single_launch_cholesky", K.device,
             out.data_ptr(), acc.data_ptr(), linv.data_ptr(), n, B, grid)
     return out

@@ -4,13 +4,15 @@ Each source under `csrc/` is compiled by `nvcc` for Hopper (`sm_90a`) into
 a shared library with a plain C interface, loaded with `ctypes`. Nothing
 is built when the package is imported: a kernel's library is built at its
 first launch, or ahead of time by `build()`. The library's file name holds
-a hash of its source and flags, so a stale build is never loaded.
+a hash of its source, the `csrc` files it includes, and the flags, so a
+stale build is never loaded.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}
+_INCLUDE = re.compile(rb'^#include "([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -39,8 +42,14 @@ def _nvcc() -> str:
     return found
 
 
+def _source_bytes(source: str) -> bytes:
+    """The source's text, then that of each `csrc` file it includes."""
+    text = (CSRC / source).read_bytes()
+    return text + b"".join(_source_bytes(name.decode()) for name in _INCLUDE.findall(text))
+
+
 def library_path(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    text = _source_bytes(source) + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
 

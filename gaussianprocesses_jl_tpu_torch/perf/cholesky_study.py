@@ -11,9 +11,12 @@ Five experiments, at the study's own sizes:
    n_iter dependent adds, so its time is one launch plus that chain.
 2. `gram`   - the study's SE gram, through the port's `csrc/gram.cu`,
    beside its plain version, at n in {1024, 3072, 8192, 16384}.
-3. `panel`  - (L, L^-1) of one panel in one launch of `csrc/cholesky.cu`,
-   beside `torch.linalg.cholesky_ex` and cholesky_ex + `solve_triangular`,
-   at B in {512, 1024}, and at B = 3072 on the headline's SE gram + e^-2 I.
+3. `panel`  - (L, L^-1) of one panel in one cooperative launch of
+   `csrc/cholesky.cu` over the card, beside `torch.linalg.cholesky_ex` and
+   cholesky_ex + `solve_triangular`, at B in {512, 1024}, and at B = 3072
+   on the headline's SE gram + e^-2 I, with its grid and the grid syncs the
+   kernel counted, and a fit of its times to a per-step cost and a product
+   rate.
 4. `single` - the whole factorization in one cooperative launch: checked
    at n = 2048, timed at n = 10240 beside `ops/linalg.py blocked_cholesky`.
 5. `full`   - the n = 10240 factorization four ways: cholesky_ex,
@@ -34,21 +37,26 @@ from __future__ import annotations
 import argparse
 import math
 import sys
+from typing import NamedTuple
 
 import torch
 
 from ..ops import gram as gram_op
 from ..ops.cholesky_kernels import (
     chol_inv_panel,
+    chol_inv_panel_on_grid,
     chol_inv_panel_plain,
     launch_probe,
+    max_grid_blocks,
+    panel_grid_blocks,
+    panel_grid_syncs,
     single_launch_cholesky,
 )
 from ..ops.linalg import blocked_cholesky
 from ..utils.profiling import device_ms_by_name, device_time
 
 __all__ = ["study_params", "se_gram_study", "cholesky_blocked_panels", "spd_test_matrix",
-           "headline_panel_matrix",
+           "headline_panel_matrix", "PanelCase", "panel_fit",
            "study_launch_overhead", "study_gram", "study_panel",
            "study_single_launch", "study_full"]
 
@@ -212,19 +220,58 @@ def _chol_and_inverse(A: torch.Tensor) -> tuple:
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
 
+class PanelCase(NamedTuple):
+    """One size of `study_panel`. Times in ms; the kernel's grid and the
+    grid syncs it counted in its checked launch (None on the CPU)."""
+    ms: float
+    cholesky_ex_ms: float
+    library_ms: float  # cholesky_ex + solve_triangular
+    l_err: float  # max|L - L0| / max|L0|, L0 from f64
+    residual: float  # max|L^-1 L0 - I|
+    grid_blocks: int | None
+    grid_syncs: int | None
+    B: int
+
+
+def panel_fit(cases) -> tuple:
+    """Least-squares fit of t(B) = 2 nt c_step + (2 B^3 / 3) / rate to the
+    kernel times of PanelCases (nt = B / 64): (c_step in ms, rate in
+    TFLOP/s). c_step is the fixed cost of half a step (its diagonal tile
+    and one grid sync); rate is the products' rate over the card."""
+    X = torch.tensor([[2.0 * (c.B // 64), 2.0 * c.B**3 / 3.0] for c in cases],
+                     dtype=torch.float64)
+    t = torch.tensor([[c.ms] for c in cases], dtype=torch.float64)
+    c_step, inv_rate = torch.linalg.lstsq(X, t).solution.flatten().tolist()
+    return c_step, 1e-9 / inv_rate
+
+
 def study_panel(device="cuda", Bs=(512, 1024), gram_B=3072, reps=10) -> dict:
-    """{label: (kernel ms, cholesky_ex ms, cholesky_ex + solve_triangular
-    ms, L rel err, max|L^-1 L0 - I|)} of the panel kernel, on W W^T + B I
-    for each B in Bs and on the headline gram + e^-2 I at B = gram_B. Each
-    case is checked first: L within PANEL_RTOL of max|L0| of an f64
-    factorization, and L, L^-1 within PANEL_RTOL of the plain version's."""
+    """{label: PanelCase} of the panel kernel, on W W^T + B I for each B in
+    Bs and on the headline gram + e^-2 I at B = gram_B. Each case is checked
+    first: L within PANEL_RTOL of max|L0| of an f64 factorization, and L,
+    L^-1 within PANEL_RTOL of the plain version's; on the card, also the
+    grid syncs the kernel counted against the schedule's 2 nt - 1."""
     cases = [(f"B={B}", spd_test_matrix(B, 64, device)) for B in Bs]
     if gram_B:
         cases.append((f"B={gram_B} SE gram + e^-2 I", headline_panel_matrix(gram_B, device)))
+    on_card = torch.device(device).type == "cuda"
     out = {}
     for label, A in cases:
         B = A.shape[0]
-        L, Linv = chol_inv_panel(A)
+        grid = syncs = None
+        if on_card:
+            most = max_grid_blocks("panel")
+            grid = panel_grid_blocks(B, most)
+            counter = torch.zeros(1, dtype=torch.int32, device=A.device)
+            L, Linv = chol_inv_panel_on_grid(A, grid, counter)
+            syncs = int(counter.item())
+            print(f"panel grid {label}: {grid} blocks of at most {most}, {syncs} grid syncs "
+                  f"counted by the kernel", flush=True)
+            if syncs != panel_grid_syncs(B):
+                raise RuntimeError(f"panel {label}: the kernel passed {syncs} grid syncs, its "
+                                   f"schedule has {panel_grid_syncs(B)}")
+        else:
+            L, Linv = chol_inv_panel(A)
         L0 = torch.linalg.cholesky_ex(A.double())[0]
         el = _rel_err(L, L0)
         res = float((Linv.double() @ L0 - torch.eye(B, dtype=torch.float64,
@@ -237,10 +284,14 @@ def study_panel(device="cuda", Bs=(512, 1024), gram_B=3072, reps=10) -> dict:
         k = _ms(chol_inv_panel, (A,), reps)
         c = _ms(torch.linalg.cholesky_ex, (A,), reps)
         ci = _ms(_chol_and_inverse, (A,), reps)
-        out[label] = (k, c, ci, el, res)
+        out[label] = PanelCase(k, c, ci, el, res, grid, syncs, B)
         _report(f"panel kernel {label} (Lerr {el:.0e} plain {ep:.0e} res {res:.0e})", k, flops)
         _report(f"panel cholesky_ex {label}", c)
         _report(f"panel cholesky_ex + solve_triangular {label}", ci, flops)
+    if len({c.B for c in out.values()}) >= 2:
+        c_step, rate = panel_fit(out.values())
+        print(f"panel fit t(B) = 2 nt c_step + (2B^3/3)/rate: c_step {1e3 * c_step:.3f} us, "
+              f"rate {rate:.3f} TFLOP/s", flush=True)
     return out
 
 

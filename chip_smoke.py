@@ -6,7 +6,8 @@ sources in the checkout at first use.
 
 Phases, each of which exits non-zero on the first failure:
   1. the card: name and power limit (nvidia-smi), TF32 settings (both off);
-  2. build every kernel (all nvcc processes at once), with ptxas's report;
+  2. build every kernel, and the single launch's parts measurement (all
+     nvcc processes at once), with ptxas's report;
   3. the gram kernel against its plain version on the card: every profile
      family, iso and ARD, symmetric and cross, f32 and f64, n = 300 and
      3000, d = 10;
@@ -25,18 +26,24 @@ Phases, each of which exits non-zero on the first failure:
      their plain versions on the card: the launch probe exactly, the study
      gram within f32 rounding, the panel (one cooperative launch over the
      card) at B = 256, 512, 1024 and on an indefinite panel (NaN where the
-     plain version has it, no hang), the single launch at n = 2048 (and
-     against an f64 factorization);
+     plain version has it, no hang), the single launch at n = 2048 with
+     B = 128, 256 and 512 on grids of 1, 2, 7 and the most blocks (each
+     counting its grid syncs), on an indefinite K (no hang), and against an
+     f64 factorization;
  10. the study's path at full size: the study gram (n = 3072), the probe,
      `cholesky_blocked_panels` at n = 10240, block = 1024 (10 panel
      launches) and the single launch at n = 10240 (1 launch), both against
      f32 `torch.linalg.cholesky_ex`;
  11. the study's timings (perf/cholesky_study.py, whose experiments check
      every size they time: the study gram up to n = 16384, the panel at
-     B = 3072 on the headline's SE gram against its plain version and f64;
-     the panel also on the largest cooperative grid, and the fit of its
-     times to a per-step cost and a product rate), the plain versions'
-     times, and the single launch at n = 10240 against its plain version.
+     B = 3072 on the headline's SE gram against its plain version and f64,
+     and the fit of its times to a per-step cost and a product rate), the
+     plain versions'
+     times, and the single launch at n = 10240 against its plain version,
+     with its grid, the grid syncs it counted, the split of its time into
+     correction, diagonal blocks and apply from its own time stamps, and
+     the rate of its deep product beside `gemm_tile`'s
+     (perf/single_parts.py).
 The kernel launch counts are set to 0 before each main-path call and read
 after it. The last three lines are the kernel table (JSON), the card, and
 {"ok": true, "device": {...}}.
@@ -62,6 +69,7 @@ from gaussianprocesses_jl_tpu_torch.ops.linalg import (
     tri_syrk_lower,
 )
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
+from gaussianprocesses_jl_tpu_torch.perf import single_parts
 from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
@@ -332,17 +340,47 @@ def phase_study_vs_plain(dev) -> dict:
 
     Ks = study.spd_test_matrix(2048, 64, dev, seed=7)
     Ks_before = Ks.clone()
-    L = chol_op.single_launch_cholesky(Ks, B=256, R=512)
+    L = chol_op.single_launch_cholesky(Ks, B=256, R=1024)
     if not torch.equal(Ks, Ks_before):
         fail("single_launch_cholesky changed its input")
-    if not bool((torch.triu(L, 1) == 0).all()):
-        fail("single_launch_cholesky: nonzero above the diagonal")
-    errs["single_launch_cholesky"] = check_rel(
-        "single launch n=2048 vs plain", L,
-        chol_op.single_launch_cholesky_plain(Ks, B=256, R=512), 1e-5)
     check_rel("single launch n=2048 vs f64 cholesky_ex", L,
               torch.linalg.cholesky_ex(Ks.double())[0], 1e-4)
+    # every panel width on any grid: one block, a few, the largest; the grid
+    # syncs the kernel counted against the schedule's
+    errs["single_launch_cholesky"] = 0.0
+    for B in (128, 256, 512):
+        L0 = chol_op.single_launch_cholesky_plain(Ks, B=B, R=1024)
+        for grid in (1, 2, 7, chol_op.max_grid_blocks("single_launch")):
+            syncs = torch.zeros(1, dtype=torch.int32, device=dev)
+            L = chol_op.single_launch_cholesky_on_grid(Ks, grid, syncs, B=B)
+            if not bool((torch.triu(L, 1) == 0).all()):
+                fail(f"single launch B={B} on {grid} blocks: nonzero above the diagonal")
+            err = check_rel(f"single launch n=2048 B={B} on {grid} blocks vs plain", L, L0, 1e-5)
+            errs["single_launch_cholesky"] = max(errs["single_launch_cholesky"], err)
+            if int(syncs.item()) != chol_op.single_launch_grid_syncs(2048, B):
+                fail(f"single launch B={B} on {grid} blocks: {int(syncs.item())} grid syncs "
+                     f"counted, the schedule has {chol_op.single_launch_grid_syncs(2048, B)}")
+    phase_indefinite_single(dev)
     return errs
+
+
+def phase_indefinite_single(dev) -> None:
+    """The single launch on an indefinite K (pivot 1000 of 2048 at -1e4):
+    the launch returns, NaN from that pivot on where the plain version has
+    it, and the leading 1000 x 1000 finite and within 1e-5 of max|.| of
+    the plain version's."""
+    K = study.spd_test_matrix(2048, 64, dev, seed=7)
+    K[1000, 1000] = -1e4
+    L = chol_op.single_launch_cholesky(K)
+    torch.cuda.synchronize()  # returns: no block waits at a grid sync
+    L0 = chol_op.single_launch_cholesky_plain(K)
+    same_nan = bool(torch.equal(torch.tril(L).isnan(), torch.tril(L0).isnan()))
+    print(f"  indefinite single launch: {int(L.isnan().sum())} NaN, NaN where the plain version "
+          f"has it: {same_nan}, L[1000, 1000] NaN: {bool(L[1000, 1000].isnan())}")
+    if not (same_nan and bool(L[1000, 1000].isnan())):
+        fail("indefinite single launch: NaN pattern differs from the plain version's")
+    check_rel("indefinite single launch L[:1000, :1000] vs plain", L[:1000, :1000],
+              L0[:1000, :1000], 1e-5)
 
 
 def phase_indefinite_panel(dev) -> None:
@@ -444,6 +482,9 @@ def phase_study_times(dev, card) -> dict:
     c_step_ms, panel_rate = study.panel_fit(panels.values())
     print("  single launch (best of 2 x 3)")
     single = study.study_single_launch(dev, n=N_STUDY)
+    print("the single launch's correction alone, the deep product and gemm_tile "
+          "(perf/single_parts.py)")
+    products = single_parts.product_rates(dev, n=N_STUDY)
     print("  full factorization four ways (best of 2 x 3)")
     full = study.study_full(dev, n=N_STUDY)
 
@@ -501,7 +542,11 @@ def phase_study_times(dev, card) -> dict:
                           "enqueue_ms": probe_enqueue_ms}),
         "single_launch_cholesky": (single["single"], plain["single_launch_cholesky"],
                                    bound(8 * n * n, n**3 / 3), full["cholesky_ex"],
-                                   {"full_ms": full}),
+                                   {**single["stamped"], "full_ms": full,
+                                    "product_tflops_by_depth": {c: v[1] for c, v in
+                                                                products.items()},
+                                    "gemm_tile_tflops_by_depth": {c: v[3] for c, v in
+                                                                  products.items()}}),
     }
     for name, (ms, pl, (b_ms, b_by), lib, _) in rows.items():
         lib_s = "none" if lib is None else f"{lib:.4f} ms"
@@ -528,12 +573,15 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    logs = cuda.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {list(cuda.SOURCES)}")
+    sources = (*cuda.SOURCES, "single_parts.cu")
+    logs = cuda.build(sources)
+    print(f"build: {time.perf_counter() - t0:.1f} s for {list(sources)}")
     for src, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {src}: {line.strip()}")
+            if "Compiling entry function" in line:
+                print(f"  {src}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                print(f"  {src}:   {line.strip()}")
 
     # 3. kernel against its plain version
     print("phase 3: gram kernel vs plain version")

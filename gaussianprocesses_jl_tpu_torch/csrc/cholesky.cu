@@ -4,9 +4,10 @@
 //                        launch over the card. Replaces `_panel_kernel` /
 //                        `chol_inv_panel` in perf/pallas_cholesky_study.py
 //                        (:164-234).
-//   single_launch_kernel a whole left-looking Cholesky in one launch, in place.
-//                        Replaces `_single_launch_kernel` /
-//                        `single_launch_cholesky` there.
+//   single_launch_kernel a whole left-looking Cholesky in one cooperative
+//                        launch over the card. Replaces
+//                        `_single_launch_kernel` / `single_launch_cholesky`
+//                        there (:352-459).
 //   probe_kernel         a chain of n_iter dependent scalar adds, then
 //                        o = A[0:8, 0:128] + n_iter. Replaces the inner `kern`
 //                        of `study_launch_overhead` there.
@@ -17,11 +18,14 @@
 // 3.35 TB/s, so operations bound it. Beyond both, it
 // carries a chain of nt = B/64 diagonal tiles, each factored after the last,
 // with two grid syncs a step. The factorization does n^3/3: 5.3 ms at
-// n = 10240, with a chain of n dependent column steps. The probe is bound by
-// its dependent-add latency (~4 cycles an add), not by bytes or flops.
+// n = 10240, with a chain of n/B diagonal blocks, each a panel's chain. The
+// probe is bound by its dependent-add latency (~4 cycles an add), not by
+// bytes or flops.
 //
-// Design (simple and correct first; f32 SIMT, no wgmma, TMA or TF32):
-// - Every product goes through `gemm_tile`: one block of 256 threads computes
+// Design (f32 on the CUDA cores: no tensor cores, no TF32, no wgmma; the
+// study holds the factors to 1e-4 of f64, and TF32 products failed to factor
+// GP grams at noise <= 1e-2):
+// - Short products go through `gemm_tile`: one block of 256 threads computes
 //   a 64 x 64 output tile, 4 x 4 outputs per thread, staging 16-deep slices of
 //   both operands in shared memory. Operands and results live in device
 //   memory: a B = 1024 panel is 4 MB a matrix, far above a block's 227 KB of
@@ -33,13 +37,15 @@
 //   double-buffered line of shared memory). The chain is the panel's
 //   critical path, so it is kept to 128 block barriers and 16 FMAs a thread
 //   each.
-// - `panel_kernel` is a right-looking tiled Cholesky over the whole card, one
-//   cooperative launch, its grid the most tiles any phase has (capped by what
-//   fits on the card at once). The chain is answered by look-ahead: step k's
-//   phase (a) has block 0 apply step k-1's trailing update to tile (k, k)
-//   alone and factor it, while the other blocks apply that update to every
-//   other trailing tile, so the chain overlaps the products. Phase (b) shares
-//   out the panel apply L[r, k] <- L[r, k] D_k^T (r > k) and row k of L^-1,
+// - `chol_inv_grid` is a right-looking tiled Cholesky and inverse of one
+//   B x B block over the whole cooperative grid; `panel_kernel` is it alone,
+//   its grid the most tiles any phase has (capped by what fits on the card
+//   at once), and the single launch runs it on each diagonal block. The
+//   chain is answered by look-ahead: step k's phase (a) has block 0 apply
+//   step k-1's trailing update to tile (k, k) alone and factor it, while the
+//   other blocks apply that update to every other trailing tile, so the chain
+//   overlaps the products. Phase (b) shares out the panel apply
+//   L[r, k] <- L[r, k] D_k^T (r > k) and row k of L^-1,
 //   L^-1[k, j] = -D_k W[k, j] (j < k), one tile product a block. L^-1 is
 //   right-looking too: W[i, j] = sum_{m=j}^{i-1} L[i, m] L^-1[m, j] gathers
 //   one term a step, in phase (a) beside the trailing update, as soon as
@@ -47,27 +53,33 @@
 //   (Forming W[k, j] whole in phase (b) of step k, k - j products in one
 //   block, puts a chain of ~nt^2/2 tile products on the critical path: such
 //   a variant took 0.98 ms at B = 1024 against 0.49 ms this way on an H100
-//   80GB HBM3 at 700 W.) No serial L^-1 pass is left. Two grid syncs a
-//   step, 2 nt - 1 in all; the operation bound is answered by sharing every
-//   product out over the grid. No block leaves the loop early: a NaN pivot
-//   spreads through the updates.
-// - `chol_inv_block` is the panel algorithm for one block (micro-panels of
-//   64 columns, each a correction product, `chol_inv_tile`, and the apply
-//   below; then the off-diagonal tiles of L^-1). Only the single launch uses
-//   it now, for its diagonal blocks.
+//   80GB HBM3 at 700 W.) Two grid syncs a step, 2 nt - 1 in all. No block
+//   leaves the loop early: a NaN pivot spreads through the updates.
+// - The single launch's deep products (the left-looking correction, depth
+//   up to n, and the apply below the diagonal block, depth B) go through
+//   `deep_tile`: a 128 x 128 output tile a block, 8 x 8 outputs a thread in
+//   registers, 16-deep slices of both operands copied by `cp.async` into a
+//   ring of four stages in dynamic shared memory, so the next slices' loads
+//   overlap this slice's FMAs; the slices keep the operands' row-major layout
+//   with rows padded to 20 floats, so the float4 reads along the depth hit no
+//   bank twice. Every product is spread over the whole grid stream-K style:
+//   the (tile, slice) iterations of the phase are cut into one equal range a
+//   block, so every block works in every panel, however few tiles it has. A
+//   block whose range covers a whole tile writes it; the pieces of a tile
+//   split between blocks (at most two a block: its range's head and tail) go
+//   to a scratch buffer and, after a grid sync, are added in block order:
+//   no atomics, the same sums from run to run.
 // - The TPU's single-launch kernel relied on its grid running in order, one
 //   panel per step. CUDA blocks run in no order, so the factorization is one
 //   cooperative launch sized to the blocks that fit on the card at once, with
-//   grid.sync() between the three phases of each panel: the correction
-//   product over all blocks, the diagonal block's Cholesky and inverse in
-//   block 0 (`chol_inv_block`), and the below-diagonal apply over all
-//   blocks. The panel column the TPU held in VMEM is a device scratch (n, B).
+//   grid.sync() between its phases; the panel column the TPU held in VMEM is
+//   a device scratch (n, B).
 // - The probe's adds are volatile inline assembly, so the compiler can fold
 //   nothing and the time grows with n_iter.
 //
-// Every size is a multiple of 64; the wrappers in ops/cholesky_kernels.py
-// check shapes, allocate every output and scratch, size the cooperative
-// grids, and launch on the caller's stream.
+// Every size is a multiple of 64 (the single launch's B of 128); the
+// wrappers in ops/cholesky_kernels.py check shapes, allocate every output and
+// scratch, size the cooperative grids, and launch on the caller's stream.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -255,62 +267,6 @@ __device__ void chol_inv_tile(const float* src, int lds, float* L, int ldl, floa
   __syncthreads();
 }
 
-// L and L^-1 of the SPD B x B matrix A (its lower triangle is read), by one
-// block. L and Li get exact zeros above the diagonal. A may not alias L or Li.
-__device__ void chol_inv_block(const float* A, int lda, float* L, int ldl,
-                               float* Li, int ldi, int B, GemmSmem& gs,
-                               PanelSmem& ps) {
-  const int tid = threadIdx.x;
-  const int nt = B / TS;
-
-  // tiles strictly above the diagonal are zero in both factors
-  for (int64_t idx = tid; idx < (int64_t)B * B; idx += NT) {
-    const int r = (int)(idx / B), c = (int)(idx % B);
-    if (c / TS > r / TS) {
-      L[(int64_t)r * ldl + c] = 0.f;
-      Li[(int64_t)r * ldi + c] = 0.f;
-    }
-  }
-
-  for (int kt = 0; kt < nt; ++kt) {
-    const int j0 = kt * TS;
-    // 1. micro-panel column, corrected by the finished columns:
-    //    L[j0:, j0:j0+TS] = A[j0:, j0:j0+TS] - L[j0:, :j0] L[j0:j0+TS, :j0]^T
-    for (int rt = kt; rt < nt; ++rt) {
-      const int r0 = rt * TS;
-      gemm_tile<true>(L + (int64_t)r0 * ldl + j0, ldl, A + (int64_t)r0 * lda + j0, lda,
-                      L + (int64_t)r0 * ldl, ldl, L + (int64_t)j0 * ldl, ldl, j0, -1.f, gs);
-    }
-    __syncthreads();
-
-    // 2-4. the diagonal tile's factor and inverse
-    float* d = L + (int64_t)j0 * ldl + j0;
-    chol_inv_tile(d, ldl, d, ldl, Li + (int64_t)j0 * ldi + j0, ldi, ps);
-
-    // 5. rows below: L[r, j0:j0+TS] = P[r, :] X^T (in place, one tile wide)
-    for (int rt = kt + 1; rt < nt; ++rt) {
-      const int r0 = rt * TS;
-      float* t = L + (int64_t)r0 * ldl + j0;
-      gemm_tile<true>(t, ldl, nullptr, 0, t, ldl, Li + (int64_t)j0 * ldi + j0, ldi, TS, 1.f, gs);
-    }
-    __syncthreads();
-  }
-
-  // 6. off-diagonal tiles of L^-1, one block row after another:
-  //    S = L[i, j:i] L^-1[j:i, j], then L^-1[i, j] = -D_i S (in place)
-  for (int i = 1; i < nt; ++i) {
-    for (int j = 0; j < i; ++j) {
-      float* t = Li + (int64_t)i * TS * ldi + j * TS;
-      gemm_tile<false>(t, ldi, nullptr, 0, L + (int64_t)i * TS * ldl + j * TS, ldl,
-                       Li + (int64_t)j * TS * ldi + j * TS, ldi, (i - j) * TS, 1.f, gs);
-      __syncthreads();
-      gemm_tile<false>(t, ldi, nullptr, 0, Li + (int64_t)i * TS * ldi + i * TS, ldi,
-                       t, ldi, TS, -1.f, gs);
-      __syncthreads();
-    }
-  }
-}
-
 // The row i' of the t-th entry of a lower triangle listed row by row:
 // the largest i' with i'(i'+1)/2 <= t.
 __device__ int tri_row(int t) {
@@ -320,45 +276,72 @@ __device__ int tri_row(int t) {
   return i;
 }
 
+// grid.sync() that counts the syncs passed and, when STAMPS and `stamps` is
+// not null, has block 0 write %globaltimer (ns) after each: stamps[0] at the
+// start, stamps[i] after sync i, stamps[count + 1] at block 0's end.
+template <bool STAMPS>
+struct GridSync {
+  cg::grid_group grid;
+  unsigned long long* stamps;
+  int count;
+
+  __device__ void stamp(int at) {
+    if (STAMPS && stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+      unsigned long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      stamps[at] = t;
+    }
+  }
+  __device__ void operator()() {
+    grid.sync();
+    ++count;
+    stamp(count);
+  }
+  // block 0 adds the syncs passed to *syncs (unless null) and stamps its end
+  __device__ void finish(int* syncs) {
+    stamp(count + 1);
+    if (syncs != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *syncs += count;
+  }
+};
+
 // L and L^-1 of the SPD B x B matrix A (its lower triangle is read), over the
 // whole cooperative grid; see the note at the top. A is read-only and L is
 // the work array; the strictly lower tiles of L^-1 hold the running sums
 // W[i, j] = sum_m L[i, m] L^-1[m, j] until row i is final. Tile (i, j) of a
-// matrix M is M[64i:64i+64, 64j:64j+64]. Unless `syncs` is null, block 0 adds
-// the grid syncs it passed to *syncs.
-__global__ void __launch_bounds__(NT)
-panel_kernel(const float* A, float* L, float* Li, int B, int* syncs) {
-  __shared__ GemmSmem gs;
-  __shared__ PanelSmem ps;
-  cg::grid_group grid = cg::this_grid();
+// matrix M is M[64i:64i+64, 64j:64j+64]; lda, ldl and ldi are row strides.
+// L and L^-1 get exact zeros above the diagonal. 2 nt - 1 syncs, none after
+// the last phase: the caller syncs before it reads L or L^-1.
+template <typename Sync>
+__device__ void chol_inv_grid(const float* A, int lda, float* L, int ldl, float* Li, int ldi,
+                              int B, Sync& sync, GemmSmem& gs, PanelSmem& ps) {
   const int nt = B / TS;
   const int G = gridDim.x, bid = blockIdx.x;
-  int n_sync = 0;
   // phase (a): blocks 1.. share out the products while block 0 takes the
   // diagonal tile; a grid of one block takes both
   const int nw = G > 1 ? G - 1 : 1, w = G > 1 ? bid - 1 : 0;
-  auto tile = [B](float* M, int i, int j) { return M + ((int64_t)i * B + j) * TS; };
+  auto tile = [](auto* M, int ld, int i, int j) { return M + ((int64_t)i * ld + j) * TS; };
 
   for (int k = 0; k < nt; ++k) {
     // (a) tile (k, k), updated by step k-1 and factored, in block 0 ...
     if (bid == 0) {
-      float* d = tile(L, k, k);
+      float* d = tile(L, ldl, k, k);
       if (k > 0) {
-        const float* p = tile(L, k, k - 1);
-        gemm_tile<true>(d, B, d, B, p, B, p, B, TS, -1.f, gs);
+        const float* p = tile(L, ldl, k, k - 1);
+        gemm_tile<true>(d, ldl, d, ldl, p, ldl, p, ldl, TS, -1.f, gs);
         __syncthreads();
       }
-      chol_inv_tile(k == 0 ? A : d, B, d, B, tile(Li, k, k), B, ps);
+      chol_inv_tile(k == 0 ? A : d, k == 0 ? lda : ldl, d, ldl, tile(Li, ldi, k, k), ldi, ps);
     }
     if (k == 0) {
       // ... beside the set-up: A's lower tiles but (0, 0) into L, zeros
       // above the diagonal tiles of L and L^-1 and in the sums W
       for (int64_t idx = (int64_t)bid * NT + threadIdx.x; idx < (int64_t)B * B;
            idx += (int64_t)G * NT) {
-        const int rt = (int)(idx / B) / TS, ct = (int)(idx % B) / TS;
-        if (ct != rt) Li[idx] = 0.f;
-        if (ct > rt) L[idx] = 0.f;
-        else if (rt > 0) L[idx] = A[idx];
+        const int r = (int)(idx / B), c = (int)(idx % B);
+        const int rt = r / TS, ct = c / TS;
+        if (ct != rt) Li[(int64_t)r * ldi + c] = 0.f;
+        if (ct > rt) L[(int64_t)r * ldl + c] = 0.f;
+        else if (rt > 0) L[(int64_t)r * ldl + c] = A[(int64_t)r * lda + c];
       }
     } else if (w >= 0) {
       // ... beside step k-1's updates, with column k-1 of L and row k-1 of
@@ -369,76 +352,304 @@ panel_kernel(const float* A, float* L, float* Li, int B, int* syncs) {
       for (int t = w; t < n_trail + m * k; t += nw) {
         if (t < n_trail) {
           const int ip = tri_row(t + 1), jp = t + 1 - ip * (ip + 1) / 2;
-          float* o = tile(L, k + ip, k + jp);
-          gemm_tile<true>(o, B, o, B, tile(L, k + ip, k - 1), B, tile(L, k + jp, k - 1), B, TS,
-                          -1.f, gs);
+          float* o = tile(L, ldl, k + ip, k + jp);
+          gemm_tile<true>(o, ldl, o, ldl, tile(L, ldl, k + ip, k - 1), ldl,
+                          tile(L, ldl, k + jp, k - 1), ldl, TS, -1.f, gs);
         } else {
           const int i = k + (t - n_trail) / k, j = (t - n_trail) % k;
-          float* o = tile(Li, i, j);
-          gemm_tile<false>(o, B, o, B, tile(L, i, k - 1), B, tile(Li, k - 1, j), B, TS, 1.f,
-                           gs);
+          float* o = tile(Li, ldi, i, j);
+          gemm_tile<false>(o, ldi, o, ldi, tile(L, ldl, i, k - 1), ldl, tile(Li, ldi, k - 1, j),
+                           ldi, TS, 1.f, gs);
         }
       }
     }
-    grid.sync();
-    ++n_sync;
+    sync();
 
     // (b) nt - 1 tiles, one product each: row k of L^-1, L^-1[k, j] =
     // -D_k W[k, j] for j < k (W[k, j] is whole: its last term came in (a)),
     // then the panel, L[r, k] <- L[r, k] D_k^T for r > k (both in place)
-    const float* D = tile(Li, k, k);
+    const float* D = tile(Li, ldi, k, k);
     for (int t = bid; t < nt - 1; t += G) {
       if (t < k) {
-        float* o = tile(Li, k, t);
-        gemm_tile<false>(o, B, nullptr, 0, D, B, o, B, TS, -1.f, gs);
+        float* o = tile(Li, ldi, k, t);
+        gemm_tile<false>(o, ldi, nullptr, 0, D, ldi, o, ldi, TS, -1.f, gs);
       } else {
-        float* o = tile(L, t + 1, k);
-        gemm_tile<true>(o, B, nullptr, 0, o, B, D, B, TS, 1.f, gs);
+        float* o = tile(L, ldl, t + 1, k);
+        gemm_tile<true>(o, ldl, nullptr, 0, o, ldl, D, ldi, TS, 1.f, gs);
       }
     }
-    if (k + 1 < nt) {
-      grid.sync();
-      ++n_sync;
-    }
+    if (k + 1 < nt) sync();
   }
-  if (syncs != nullptr && bid == 0 && threadIdx.x == 0) *syncs += n_sync;
 }
 
-// out holds a copy of K on entry and L on exit. acc (n, B) is the current
-// panel column, linv (B, B) the inverse of its diagonal block.
-__global__ void __launch_bounds__(NT)
-single_launch_kernel(float* out, float* acc, float* linv, int n, int B) {
+// L and L^-1 of the SPD B x B matrix A over the cooperative grid (all B x B,
+// row stride B). Unless `syncs` is null, block 0 adds the grid syncs it
+// passed to *syncs.
+__global__ void __launch_bounds__(NT, 2)
+panel_kernel(const float* A, float* L, float* Li, int B, int* syncs) {
   __shared__ GemmSmem gs;
   __shared__ PanelSmem ps;
-  cg::grid_group grid = cg::this_grid();
-  const int tid = threadIdx.x;
-  const int ct_n = B / TS;
-  for (int c = 0; c < n; c += B) {
-    const int rt_n = (n - c) / TS;
-    // 1. left-looking correction over all blocks:
-    //    acc[r, :] = K[r, c:c+B] - L[r, :c] L[c:c+B, :c]^T for r >= c
-    for (int t = blockIdx.x; t < rt_n * ct_n; t += gridDim.x) {
-      const int r0 = c + (t / ct_n) * TS, c0 = (t % ct_n) * TS;
-      gemm_tile<true>(acc + (int64_t)r0 * B + c0, B, out + (int64_t)r0 * n + c + c0, n,
-                      out + (int64_t)r0 * n, n, out + (int64_t)(c + c0) * n, n, c, -1.f, gs);
-    }
-    grid.sync();
-    // 2. the diagonal block's Cholesky and inverse, in block 0
-    if (blockIdx.x == 0)
-      chol_inv_block(acc + (int64_t)c * B, B, out + (int64_t)c * n + c, n, linv, B, B, gs, ps);
-    grid.sync();
-    // 3. below-diagonal apply over all blocks, L[r, c:c+B] = acc[r, :] linv^T
-    //    for r >= c + B, and zeros above the diagonal block
-    for (int t = blockIdx.x; t < (rt_n - ct_n) * ct_n; t += gridDim.x) {
-      const int r0 = c + B + (t / ct_n) * TS, c0 = (t % ct_n) * TS;
-      gemm_tile<true>(out + (int64_t)r0 * n + c + c0, n, nullptr, 0, acc + (int64_t)r0 * B, B,
-                      linv + (int64_t)c0 * B, B, B, 1.f, gs);
-    }
-    for (int64_t idx = (int64_t)blockIdx.x * NT + tid; idx < (int64_t)c * B;
-         idx += (int64_t)gridDim.x * NT)
-      out[(idx / B) * n + c + idx % B] = 0.f;
-    grid.sync();
+  GridSync<false> sync{cg::this_grid(), nullptr, 0};
+  chol_inv_grid(A, B, L, B, Li, B, B, sync, gs, ps);
+  sync.finish(syncs);
+}
+
+// ---------------------------------------------------------------------------
+// the deep tile product
+// ---------------------------------------------------------------------------
+
+constexpr int DT = 128;      // output tile edge
+constexpr int DK = 16;       // depth of a staged slice
+constexpr int DKP = DK + 4;  // padded slice row: 80 B, float4 reads conflict-free
+constexpr int STAGES = 4;    // slices in the ring
+
+struct __align__(16) DeepStage {
+  float a[DT][DKP];  // A's rows r0.. r0+127, depths k0.. k0+15, as in memory
+  float b[DT][DKP];  // B's rows (the output's columns), the same depths
+};
+constexpr int DEEP_SMEM = STAGES * (int)sizeof(DeepStage);  // 81,920 B
+static_assert(DEEP_SMEM >= (int)(sizeof(GemmSmem) + sizeof(PanelSmem)), "shared buffer too small");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// acc[i][j] += sum over depths k in [DK s0, DK s1) of A[ty + 16i][k] Bm[tx + 16j][k]
+// (tx, ty = thread % 16, thread / 16): one DT x DT tile of A Bm^T, both
+// operands DT rows with the depth contiguous. Pointers and strides keep
+// every 16-byte copy aligned (multiples of 4 floats).
+__device__ void deep_tile(float (&acc)[8][8], const float* A, int lda, const float* Bm, int ldb,
+                          int s0, int s1, DeepStage* ring) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int lr = tid / 4, lk = (tid % 4) * 4;  // rows lr, lr + 64; depths lk.. lk+3
+  auto load = [&](int s, int st) {
+    const int k = s * DK + lk;
+    DeepStage& S = ring[st];
+    cp_async16(&S.a[lr][lk], A + (int64_t)lr * lda + k);
+    cp_async16(&S.a[lr + 64][lk], A + (int64_t)(lr + 64) * lda + k);
+    cp_async16(&S.b[lr][lk], Bm + (int64_t)lr * ldb + k);
+    cp_async16(&S.b[lr + 64][lk], Bm + (int64_t)(lr + 64) * ldb + k);
+  };
+  const int ns = s1 - s0;
+#pragma unroll
+  for (int p = 0; p < STAGES - 1; ++p) {
+    if (p < ns) load(s0 + p, p);
+    cp_async_commit();
   }
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<STAGES - 2>();  // slice s has landed ...
+    __syncthreads();              // ... for every thread, and slice s-1 is spent
+    const int nx = s + STAGES - 1;
+    if (nx < ns) load(s0 + nx, nx % STAGES);
+    cp_async_commit();
+    const DeepStage& S = ring[s % STAGES];
+#pragma unroll
+    for (int kk = 0; kk < DK; kk += 4) {
+      float4 b[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) b[j] = *reinterpret_cast<const float4*>(&S.b[tx + 16 * j][kk]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(&S.a[ty + 16 * i][kk]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the next call
+}
+
+// out = cin + sign * A Bm^T over rows x cols (multiples of DT), depth K (a
+// multiple of DK); cin may be null (zero). Row strides ldo, ldcin, lda, ldb.
+struct Product {
+  float* out;
+  int ldo;
+  const float* cin;
+  int ldcin;
+  const float* A;
+  int lda;
+  const float* Bm;
+  int ldb;
+  int rows, cols, K;
+  float sign;
+};
+
+// Stream-K: the T nk (tile, slice) iterations, tile-major, cut into G
+// ranges [I b / G, I (b + 1) / G). The block whose range holds iteration x:
+// the largest b with I b / G <= x.
+__device__ __forceinline__ int64_t sk_start(int64_t I, int b, int G) { return I * b / G; }
+__device__ __forceinline__ int sk_block_of(int64_t x, int64_t I, int G) {
+  return (int)(((x + 1) * G + I - 1) / I) - 1;
+}
+
+// Phase 1 of a product: each block runs its range. A tile whose iterations
+// all fall in the range is written to `out`; a piece of a tile goes to the
+// scratch slot 2b (the range's head) or 2b + 1 (its tail), DT x DT each.
+__device__ void product_partials(const Product& p, float* part, DeepStage* ring) {
+  const int ct = p.cols / DT, nk = p.K / DK;
+  const int64_t I = (int64_t)(p.rows / DT) * ct * nk;
+  const int G = gridDim.x, b = blockIdx.x;
+  const int64_t s = sk_start(I, b, G), e = sk_start(I, b + 1, G);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int64_t it = s; it < e;) {
+    const int t = (int)(it / nk);
+    const int64_t t0 = (int64_t)t * nk, t_end = t0 + nk;
+    const int64_t stop = e < t_end ? e : t_end;
+    const int k0 = (int)(it - t0), k1 = (int)(stop - t0);
+    const int r0 = (t / ct) * DT, c0 = (t % ct) * DT;
+    float acc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    deep_tile(acc, p.A + (int64_t)r0 * p.lda, p.lda, p.Bm + (int64_t)c0 * p.ldb, p.ldb, k0, k1,
+              ring);
+    if (k0 == 0 && k1 == nk) {
+      float* o = p.out + (int64_t)r0 * p.ldo + c0;
+      const float* ci = p.cin == nullptr ? nullptr : p.cin + (int64_t)r0 * p.ldcin + c0;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int r = ty + 16 * i, c = tx + 16 * j;
+          float v = p.sign * acc[i][j];
+          if (ci != nullptr) v += ci[(int64_t)r * p.ldcin + c];
+          o[(int64_t)r * p.ldo + c] = v;
+        }
+    } else {
+      float* q = part + (int64_t)(2 * b + (it == s ? 0 : 1)) * DT * DT;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) q[(ty + 16 * i) * DT + tx + 16 * j] = acc[i][j];
+    }
+    it = stop;
+  }
+}
+
+// Phase 2, after a grid sync: every tile not written whole in phase 1 gets
+// cin + sign * (its pieces summed in block order), half a tile a block at a
+// time (the pieces' slots found once a half, 8 float4s a thread). At K = 0
+// that is cin (or zero).
+__device__ void product_reduce(const Product& p, const float* part) {
+  constexpr int H = 2, HR = DT / H;    // halves of a tile, rows a half
+  constexpr int Q = HR * DT / 4 / NT;  // float4s a thread a half
+  const int ct = p.cols / DT, nk = p.K / DK, T = (p.rows / DT) * ct;
+  const int64_t I = (int64_t)T * nk;
+  const int G = gridDim.x;
+  for (int u = blockIdx.x; u < T * H; u += G) {
+    const int t = u / H, h = u % H;
+    const int64_t t0 = (int64_t)t * nk;
+    int bf = 0, bl = -1;  // the blocks whose pieces make the tile; none at K = 0
+    if (nk > 0) {
+      bf = sk_block_of(t0, I, G);
+      bl = sk_block_of(t0 + nk - 1, I, G);
+      if (bf == bl) continue;  // one block wrote the whole tile
+    }
+    float4 v[Q];
+#pragma unroll
+    for (int m = 0; m < Q; ++m) v[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    int64_t sb = bf > bl ? 0 : sk_start(I, bf, G);
+    for (int b = bf; b <= bl; ++b) {
+      const int64_t se = sk_start(I, b + 1, G);
+      if (se > sb) {  // not an empty range
+        const float* q = part + (int64_t)(2 * b + (sb >= t0 ? 0 : 1)) * DT * DT + h * HR * DT;
+#pragma unroll
+        for (int m = 0; m < Q; ++m) {
+          const int e = threadIdx.x + m * NT;
+          const float4 w = *reinterpret_cast<const float4*>(q + (e / (DT / 4)) * DT + (e % (DT / 4)) * 4);
+          v[m].x += w.x;
+          v[m].y += w.y;
+          v[m].z += w.z;
+          v[m].w += w.w;
+        }
+      }
+      sb = se;
+    }
+    const int64_t row0 = (t / ct) * DT + h * HR, col0 = (t % ct) * DT;
+#pragma unroll
+    for (int m = 0; m < Q; ++m) {
+      const int e = threadIdx.x + m * NT;
+      const int64_t row = row0 + e / (DT / 4), col = col0 + (e % (DT / 4)) * 4;
+      float4 o = make_float4(p.sign * v[m].x, p.sign * v[m].y, p.sign * v[m].z, p.sign * v[m].w);
+      if (p.cin != nullptr) {
+        const float4 ci = *reinterpret_cast<const float4*>(p.cin + row * p.ldcin + col);
+        o.x += ci.x;
+        o.y += ci.y;
+        o.z += ci.z;
+        o.w += ci.w;
+      }
+      *reinterpret_cast<float4*>(p.out + row * p.ldo + col) = o;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the whole factorization in one launch
+// ---------------------------------------------------------------------------
+
+// out holds a copy of K on entry and L on exit. acc (n, B) is the current
+// panel column (by absolute row), linv (B, B) the inverse of its diagonal
+// block, part (2 grid, DT, DT) the products' pieces. For each panel column c:
+//   1. the correction acc[c:] = out[c:, c:c+B] - out[c:, :c] out[c:c+B, :c]^T,
+//      a deep product over the grid (pieces, sync, sum, sync);
+//   2. the diagonal block's L into out[c:c+B, c:c+B] and its inverse into
+//      linv by `chol_inv_grid` (2 nt - 1 syncs), then a sync;
+//   3. the apply out[c+B:, c:c+B] = acc[c+B:] linv^T, a deep product (pieces,
+//      sync, sum), beside zeros into out[:c, c:c+B]; a sync but after the
+//      last panel.
+// 2 nt + 4 syncs a panel (nt = B / 64), one fewer in all. Unless null,
+// `syncs` gains the syncs passed and `stamps` (syncs + 2 entries) the
+// block-0 time stamps of GridSync.
+__global__ void __launch_bounds__(NT, 1)
+single_launch_kernel(float* out, float* acc, float* linv, float* part, int n, int B, int* syncs,
+                     unsigned long long* stamps) {
+  // the deep products' ring and the diagonal block's buffers take turns in
+  // one dynamic shared buffer: a grid sync stands between their phases
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  DeepStage* ring = reinterpret_cast<DeepStage*>(dyn_smem);
+  GemmSmem& gs = *reinterpret_cast<GemmSmem*>(dyn_smem);
+  PanelSmem& ps = *reinterpret_cast<PanelSmem*>(dyn_smem + sizeof(GemmSmem));
+  GridSync<true> sync{cg::this_grid(), stamps, 0};
+  sync.stamp(0);
+  for (int c = 0; c < n; c += B) {
+    const int64_t cn = (int64_t)c * n;
+    const Product corr{acc + (int64_t)c * B, B, out + cn + c, n, out + cn, n, out + cn, n,
+                       n - c, B, c, -1.f};
+    product_partials(corr, part, ring);
+    sync();
+    product_reduce(corr, part);
+    sync();
+
+    chol_inv_grid(acc + (int64_t)c * B, B, out + cn + c, n, linv, B, B, sync, gs, ps);
+    sync();
+
+    const Product apply{out + cn + (int64_t)B * n + c, n, nullptr, 0, acc + (int64_t)(c + B) * B,
+                        B, linv, B, n - c - B, B, B, 1.f};
+    product_partials(apply, part, ring);
+    sync();
+    product_reduce(apply, part);
+    const int b4 = B / 4;  // zeros above the diagonal block, a float4 at a time
+    for (int idx = blockIdx.x * NT + threadIdx.x; idx < c * b4; idx += gridDim.x * NT)
+      *reinterpret_cast<float4*>(out + (int64_t)(idx / b4) * n + c + (idx % b4) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c + B < n) sync();
+  }
+  sync.finish(syncs);
 }
 
 __global__ void probe_kernel(const float* A, int lda, float* o, int n_iter) {
@@ -449,21 +660,34 @@ __global__ void probe_kernel(const float* A, int lda, float* o, int n_iter) {
   for (int r = 0; r < 8; ++r) o[r * 128 + c] = A[(int64_t)r * lda + c] + acc;
 }
 
-// The most blocks of `kernel` that fit on the current device at once: the
-// largest grid a cooperative launch of it accepts.
+// Lets `kernel` take `smem` bytes of dynamic shared memory (above 48 KB it
+// must ask); the occupancy query and every launch use the same byte count.
 template <typename Kernel>
-int max_coresident_blocks(Kernel kernel, int* blocks) {
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// The most blocks of `kernel` (with `smem` bytes of dynamic shared memory)
+// that fit on the current device at once: the largest grid a cooperative
+// launch of it accepts.
+template <typename Kernel>
+int max_coresident_blocks(Kernel kernel, int smem, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, 0);
+  if (e == cudaSuccess) e = allow_smem(kernel, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem);
   *blocks = per_sm * sms;
   return (int)e;
 }
 
-int launch_cooperative(const void* kernel, int grid, void** args, void* stream) {
-  cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(NT), args, 0,
-                                              static_cast<cudaStream_t>(stream));
+template <typename Kernel>
+int launch_cooperative(Kernel kernel, int grid, int smem, void** args, void* stream) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid), dim3(NT), args, smem,
+                                    static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -476,7 +700,7 @@ int launch_cooperative(const void* kernel, int grid, void** args, void* stream) 
 
 // The largest cooperative grid of each kernel on the current device.
 extern "C" int panel_max_blocks(int* blocks) {
-  return max_coresident_blocks(panel_kernel, blocks);
+  return max_coresident_blocks(panel_kernel, 0, blocks);
 }
 
 // A (B, B) -> L, Li (B, B); B % 64 == 0; 1 <= grid <= panel_max_blocks.
@@ -484,19 +708,23 @@ extern "C" int panel_max_blocks(int* blocks) {
 extern "C" int chol_inv_panel_f32(const float* A, float* L, float* Li, int B, int grid,
                                   int* syncs, void* stream) {
   void* args[] = {&A, &L, &Li, &B, &syncs};
-  return launch_cooperative((const void*)panel_kernel, grid, args, stream);
+  return launch_cooperative(panel_kernel, grid, 0, args, stream);
 }
 
 extern "C" int single_launch_max_blocks(int* blocks) {
-  return max_coresident_blocks(single_launch_kernel, blocks);
+  return max_coresident_blocks(single_launch_kernel, DEEP_SMEM, blocks);
 }
 
-// out (n, n) holds K and receives L; acc (n, B) and linv (B, B) are scratch;
-// n % B == 0, B % 64 == 0; grid <= single_launch_max_blocks.
-extern "C" int single_launch_cholesky_f32(float* out, float* acc, float* linv, int n, int B,
-                                          int grid, void* stream) {
-  void* args[] = {&out, &acc, &linv, &n, &B};
-  return launch_cooperative((const void*)single_launch_kernel, grid, args, stream);
+// out (n, n) holds K and receives L; acc (n, B), linv (B, B) and part
+// (2 grid, 128, 128) are scratch; n % B == 0, B % 128 == 0;
+// 1 <= grid <= single_launch_max_blocks. syncs: null, or one int on the
+// device that gains the grid syncs; stamps: null, or syncs + 2 uint64 on
+// the device for block 0's %globaltimer stamps.
+extern "C" int single_launch_cholesky_f32(float* out, float* acc, float* linv, float* part, int n,
+                                          int B, int grid, int* syncs,
+                                          unsigned long long* stamps, void* stream) {
+  void* args[] = {&out, &acc, &linv, &part, &n, &B, &syncs, &stamps};
+  return launch_cooperative(single_launch_kernel, grid, DEEP_SMEM, args, stream);
 }
 
 // A (>= 8 rows, >= 128 columns, row stride lda) -> o (8, 128).

@@ -45,10 +45,10 @@ extern "C" int gemm_bench_f32(const float* A, const float* Bm, float* C, int K, 
 }
 
 extern "C" int sync_bench_max_blocks(int* blocks) {
-  return max_coresident_blocks(sync_bench, blocks);
+  return max_coresident_blocks(sync_bench, 0, blocks);
 }
 
 extern "C" int sync_bench_run(int iters, int grid) {
   void* args[] = {&iters};
-  return launch_cooperative((const void*)sync_bench, grid, args, nullptr);
+  return launch_cooperative(sync_bench, grid, 0, args, nullptr);
 }

@@ -20,7 +20,9 @@ from . import cuda
 __all__ = ["LAUNCHES", "TILE", "launch_probe", "launch_probe_plain",
            "chol_inv_panel", "chol_inv_panel_plain", "chol_inv_panel_on_grid",
            "panel_grid_blocks", "panel_grid_syncs", "max_grid_blocks",
-           "single_launch_cholesky", "single_launch_cholesky_plain"]
+           "single_launch_cholesky", "single_launch_cholesky_plain",
+           "single_launch_cholesky_on_grid", "single_launch_grid_syncs", "single_launch_phases",
+           "single_launch_split"]
 
 # kernel launches by name; each wrapper adds one where it launches
 LAUNCHES = {"launch_probe": 0, "chol_inv_panel": 0, "single_launch_cholesky": 0}
@@ -39,7 +41,7 @@ _ARGTYPES = {
     "panel_max_blocks": [ctypes.POINTER(_I)],
     "chol_inv_panel_f32": [_P, _P, _P, _I, _I, _P, _P],
     "single_launch_max_blocks": [ctypes.POINTER(_I)],
-    "single_launch_cholesky_f32": [_P, _P, _P, _I, _I, _I, _P],
+    "single_launch_cholesky_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 _ENTRIES: dict = {}
 
@@ -216,6 +218,7 @@ def chol_inv_panel(A: torch.Tensor, T: int = 128) -> tuple:
 # ---------------------------------------------------------------------------
 
 _STUDY_T = 128  # the study's micro-panel width inside the diagonal block
+_DEEP_TILE = 128  # the single launch's product tile edge
 
 
 def single_launch_cholesky_plain(K: torch.Tensor, B: int = 256, R: int = 1024) -> torch.Tensor:
@@ -254,13 +257,81 @@ def max_grid_blocks(kernel: str) -> int:
     return _MAX_BLOCKS[key]
 
 
+def single_launch_grid_syncs(n: int, B: int) -> int:
+    """Grid syncs the single launch's schedule has: for each of the n / B
+    panels, two for the correction (its pieces, their sum), the diagonal
+    block's 2 nt - 1 (nt = B / 64) and one after it, two for the apply; none
+    after the last panel. The kernel counts those it passes."""
+    return (n // B) * (2 * (B // TILE) + 4) - 1
+
+
+def single_launch_phases(n: int, B: int) -> list:
+    """The part of the factorization each phase between two grid syncs
+    belongs to, in order ("correction", "diagonal" or "apply"): one more
+    than `single_launch_grid_syncs(n, B)`."""
+    panel = ["correction"] * 2 + ["diagonal"] * (2 * (B // TILE)) + ["apply"] * 2
+    return panel * (n // B)
+
+
+def single_launch_split(stamps: torch.Tensor, n: int, B: int) -> dict:
+    """{part + "_ms": milliseconds} of one launch from its block-0 stamps
+    (`single_launch_cholesky_on_grid(..., stamps=...)`, nanoseconds): each
+    phase's time, from its start to the next stamp, summed by part."""
+    t = stamps.detach().to("cpu", torch.float64)
+    phases = single_launch_phases(n, B)
+    if t.numel() != len(phases) + 1:
+        raise ValueError(f"single_launch_split: need {len(phases) + 1} stamps for n = {n}, "
+                         f"B = {B}, got {t.numel()}")
+    split = {"correction_ms": 0.0, "diagonal_ms": 0.0, "apply_ms": 0.0}
+    for part, ns in zip(phases, (t[1:] - t[:-1]).tolist()):
+        split[f"{part}_ms"] += ns / 1e6
+    return split
+
+
+def _device_int(name: str, t: torch.Tensor | None, dtype, numel: int, device) -> None:
+    if t is not None and (t.dtype != dtype or t.numel() != numel or t.device != device
+                          or not t.is_contiguous()):
+        raise ValueError(f"single_launch_cholesky_on_grid: {name} must be {numel} contiguous "
+                         f"{dtype} on {device}, got {t.dtype} of {t.numel()} on {t.device}")
+
+
+def single_launch_cholesky_on_grid(K: torch.Tensor, grid: int, syncs: torch.Tensor | None = None,
+                                   stamps: torch.Tensor | None = None, B: int = 256) -> torch.Tensor:
+    """L of the f32 CUDA matrix K (n % B == 0, B % 128 == 0) from one
+    cooperative launch of the single-launch kernel over `grid` blocks
+    (1 <= grid <= max_grid_blocks("single_launch")). `single_launch_cholesky`
+    takes the largest grid; this entry lets a measurement choose it.
+    `syncs`, one int32 on K's device, gains the grid syncs the kernel
+    passed; `stamps`, single_launch_grid_syncs(n, B) + 2 int64 on K's device,
+    receives block 0's %globaltimer after each (`single_launch_split`)."""
+    n = _square("single_launch_cholesky", K)
+    if (K.device.type != "cuda" or K.dtype != _F32 or B <= 0 or n % B or B % _DEEP_TILE
+            or not 1 <= grid):
+        raise ValueError(f"single_launch_cholesky_on_grid: need an f32 CUDA matrix with n % B == 0, "
+                         f"B % {_DEEP_TILE} == 0 and grid >= 1, got {K.dtype} on {K.device}, "
+                         f"n = {n}, B = {B}, grid = {grid}")
+    _device_int("syncs", syncs, torch.int32, 1, K.device)
+    _device_int("stamps", stamps, torch.int64, single_launch_grid_syncs(n, B) + 2, K.device)
+    out = torch.empty((n, n), dtype=_F32, device=K.device)
+    out.copy_(K)
+    acc = torch.empty((n, B), dtype=_F32, device=K.device)
+    linv = torch.empty((B, B), dtype=_F32, device=K.device)
+    part = torch.empty((2 * grid, _DEEP_TILE, _DEEP_TILE), dtype=_F32, device=K.device)
+    _launch("single_launch_cholesky_f32", "single_launch_cholesky", K.device,
+            out.data_ptr(), acc.data_ptr(), linv.data_ptr(), part.data_ptr(), n, B, int(grid),
+            None if syncs is None else syncs.data_ptr(),
+            None if stamps is None else stamps.data_ptr())
+    return out
+
+
 def single_launch_cholesky(K: torch.Tensor, B: int = 256, R: int = 1024) -> torch.Tensor:
     """Lower Cholesky factor of the SPD matrix K, f32, with exact zeros above
-    the diagonal, from one cooperative launch: K is copied into the output
-    and factorized there in place (the caller's K is left as it was).
+    the diagonal (NaN from an indefinite pivot on), from one cooperative
+    launch over the card: K is copied into the output and factorized there
+    in place (the caller's K is left as it was).
 
     The study's signature and asserts: n % B == n % R == R % B == 0. R (the
-    study's row tile) changes no value; the kernel streams 64-row tiles.
+    study's row tile) changes no value; the kernel streams 128-row tiles.
     The diagonal blocks follow the study's 128-wide micro-panels, so B must
     be a multiple of 128."""
     n = _square("single_launch_cholesky", K)
@@ -272,12 +343,6 @@ def single_launch_cholesky(K: torch.Tensor, B: int = 256, R: int = 1024) -> torc
     K = K.to(_F32)
     if K.device.type == "cpu":
         return single_launch_cholesky_plain(K, B, R)
-    out = torch.empty((n, n), dtype=_F32, device=K.device)
-    out.copy_(K)
-    acc = torch.empty((n, B), dtype=_F32, device=K.device)
-    linv = torch.empty((B, B), dtype=_F32, device=K.device)
     with torch.cuda.device(K.device):
         grid = max_grid_blocks("single_launch")
-    _launch("single_launch_cholesky_f32", "single_launch_cholesky", K.device,
-            out.data_ptr(), acc.data_ptr(), linv.data_ptr(), n, B, grid)
-    return out
+    return single_launch_cholesky_on_grid(K, grid, B=B)

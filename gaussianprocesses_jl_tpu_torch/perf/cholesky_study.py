@@ -18,7 +18,10 @@ Five experiments, at the study's own sizes:
    kernel counted, and a fit of its times to a per-step cost and a product
    rate.
 4. `single` - the whole factorization in one cooperative launch: checked
-   at n = 2048, timed at n = 10240 beside `ops/linalg.py blocked_cholesky`.
+   at n = 2048, timed at n = 10240 beside `ops/linalg.py blocked_cholesky`,
+   then one launch at n = 10240 with the grid syncs the kernel counted and
+   its block-0 time stamps, split into correction, diagonal block and
+   apply.
 5. `full`   - the n = 10240 factorization four ways: cholesky_ex,
    `blocked_cholesky(block=1024)`, the same left-looking blocked loop with the
    panel kernel (`cholesky_blocked_panels`), and the single launch.
@@ -51,6 +54,9 @@ from ..ops.cholesky_kernels import (
     panel_grid_blocks,
     panel_grid_syncs,
     single_launch_cholesky,
+    single_launch_cholesky_on_grid,
+    single_launch_grid_syncs,
+    single_launch_split,
 )
 from ..ops.linalg import blocked_cholesky
 from ..utils.profiling import device_ms_by_name, device_time
@@ -58,7 +64,7 @@ from ..utils.profiling import device_ms_by_name, device_time
 __all__ = ["study_params", "se_gram_study", "cholesky_blocked_panels", "spd_test_matrix",
            "headline_panel_matrix", "PanelCase", "panel_fit",
            "study_launch_overhead", "study_gram", "study_panel",
-           "study_single_launch", "study_full"]
+           "correction_flops", "single_launch_stamped", "study_single_launch", "study_full"]
 
 _F32 = torch.float32
 # the study's SE hyperparameters: ll = 0.3, lsigma = 0.2
@@ -295,10 +301,38 @@ def study_panel(device="cuda", Bs=(512, 1024), gram_B=3072, reps=10) -> dict:
     return out
 
 
+def correction_flops(n: int, B: int, c: int) -> float:
+    """Flops of the single launch's correction of panel column c:
+    2 (n - c) B c."""
+    return 2.0 * (n - c) * B * c
+
+
+def single_launch_stamped(K: torch.Tensor, B: int = 256) -> dict:
+    """One single launch of the f32 CUDA matrix K on its largest grid, with
+    the grid syncs it counted (checked against `single_launch_grid_syncs`)
+    and its block-0 time stamps: {"grid_blocks", "grid_syncs",
+    "correction_ms", "diagonal_ms", "apply_ms", "correction_tflops"}, the
+    last the correction's flops over the factorization over its time."""
+    n = K.shape[0]
+    grid = max_grid_blocks("single_launch")
+    syncs = torch.zeros(1, dtype=torch.int32, device=K.device)
+    stamps = torch.zeros(single_launch_grid_syncs(n, B) + 2, dtype=torch.int64, device=K.device)
+    single_launch_cholesky_on_grid(K, grid, syncs, stamps, B=B)
+    counted = int(syncs.item())
+    if counted != single_launch_grid_syncs(n, B):
+        raise RuntimeError(f"single launch n={n}: the kernel passed {counted} grid syncs, its "
+                           f"schedule has {single_launch_grid_syncs(n, B)}")
+    split = single_launch_split(stamps, n, B)
+    flops = sum(correction_flops(n, B, c) for c in range(0, n, B))
+    return {"grid_blocks": grid, "grid_syncs": counted, **split,
+            "correction_tflops": flops / split["correction_ms"] / 1e9}
+
+
 def study_single_launch(device="cuda", n=10240, n_check=2048, reps=3) -> dict:
     """Correctness at n_check (relative error against an f64 factorization,
     below 1e-4 as the study asserts), then the single launch and
-    `blocked_cholesky(block=1024)` at n."""
+    `blocked_cholesky(block=1024)` at n; on the card, also one stamped
+    launch at n (`single_launch_stamped`: grid, grid syncs, split)."""
     A = spd_test_matrix(n_check, 64, device)
     err = _rel_err(single_launch_cholesky(A, B=256, R=512),
                    torch.linalg.cholesky_ex(A.double())[0])
@@ -311,7 +345,14 @@ def study_single_launch(device="cuda", n=10240, n_check=2048, reps=3) -> dict:
     _report(f"full single-launch kernel n={n}", single, flops)
     blocked = _ms(lambda K: blocked_cholesky(K, block=1024)[0], (K,), reps)
     _report("full blocked_cholesky(block=1024)", blocked, flops)
-    return {"rel_err": err, "single": single, "blocked": blocked}
+    out = {"rel_err": err, "single": single, "blocked": blocked}
+    if K.device.type == "cuda":
+        out["stamped"] = s = single_launch_stamped(K)
+        print(f"single launch n={n}: {s['grid_blocks']} blocks, {s['grid_syncs']} grid syncs "
+              f"counted by the kernel; split correction {s['correction_ms']:.4f} ms "
+              f"({s['correction_tflops']:.2f} TFLOP/s), diagonal {s['diagonal_ms']:.4f} ms, "
+              f"apply {s['apply_ms']:.4f} ms", flush=True)
+    return out
 
 
 def study_full(device="cuda", n=10240, reps=3) -> dict:

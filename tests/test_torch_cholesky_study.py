@@ -10,6 +10,7 @@ with numpy from a seed and handed to both.
 Python int, which fails under this suite's x64 mode; it runs under
 `jax.enable_x64(False)`, as on the TPU.
 """
+import collections
 import functools
 import importlib.util
 import math
@@ -26,7 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels as ck
 from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as cs
-from gaussianprocesses_jl_tpu_torch.perf import panel_parts
+from gaussianprocesses_jl_tpu_torch.perf import panel_parts, single_parts
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 _spec = importlib.util.spec_from_file_location(
@@ -139,13 +140,15 @@ def test_indefinite_panel_gives_nan_in_both():
 
 
 # ---------------------------------------------------------------------------
-# a CPU model of the CUDA panel kernel's schedule (csrc/cholesky.cu,
-# panel_kernel): the same steps on 64-wide tiles, phase by phase: the
+# CPU models of the CUDA kernels' schedules (csrc/cholesky.cu): the same
+# phases on tiles. Each task of a phase (one block's work) reads the state as
+# it stood at the phase's start, and no task may read or write a 64-wide
+# tile another task of the phase writes, so a missing grid sync shows as an
+# error, not as luck.
+#
+# The panel (panel_kernel, chol_inv_grid): for each 64-wide step, the
 # look-ahead diagonal tile beside the trailing update and the L^-1 sums W,
-# then the panel apply and row k of L^-1. Each task of a phase (one block's
-# work on one tile) reads the state as it stood at the phase's start, and no
-# task may read or write a tile another task of the phase writes, so a
-# missing grid sync shows as an error, not as luck.
+# then the panel apply and row k of L^-1.
 # ---------------------------------------------------------------------------
 
 _T = 64
@@ -166,66 +169,88 @@ def _factor_tile(P):
     return Ld, X
 
 
-def _panel_schedule_model(A, merge_phases=False):
-    """(L, L^-1, tile tasks in the widest phase, phases) of the f32 matrix A
-    by the kernel's schedule. The set-up is not counted in the width: the
-    kernel spreads it element by element over whatever grid it has.
-    `merge_phases` drops the grid sync between each step's phases (a) and
-    (b), to show that the model catches it."""
-    B = A.shape[0]
-    nt = B // _T
-    state = {"A": A.clone(), "L": torch.empty_like(A), "Li": torch.empty_like(A)}
-    widest, n_phases = 0, 0
+def _tile_keys(name, r0, r1, c0, c1):
+    return {(name, i, j) for i in range(r0 // _T, -(-r1 // _T))
+            for j in range(c0 // _T, -(-c1 // _T))}
 
-    def run(tasks, width):
-        nonlocal widest, n_phases
-        snap = {k: v.clone() for k, v in state.items()}
+
+class _Phases:
+    """Named matrices and the phases run on them. A task is get -> {(name,
+    row, col): block written there}, where get(name, r0, r1, c0, c1) reads
+    the state at the phase's start."""
+
+    def __init__(self, **state):
+        self.state = {k: v.clone() for k, v in state.items()}
+        self.n_phases = 0
+        self.widest = 0
+
+    def run(self, tasks, width=None):
+        snap = {k: v.clone() for k, v in self.state.items()}
         done = []
         for task in tasks:
             reads = set()
 
-            def get(name, i, j, reads=reads):
-                reads.add((name, i, j))
-                return snap[name][i * _T:(i + 1) * _T, j * _T:(j + 1) * _T]
+            def get(name, r0, r1, c0, c1, reads=reads):
+                reads |= _tile_keys(name, r0, r1, c0, c1)
+                return snap[name][r0:r1, c0:c1]
 
-            done.append((reads, task(get)))
-        for n, (reads, writes) in enumerate(done):
-            others = {key for m, (_, w) in enumerate(done) if m != n for key in w}
-            assert not others & (reads | set(writes)), "a tile is shared within a phase"
-        for _, writes in done:
-            for (name, i, j), v in writes.items():
-                state[name][i * _T:(i + 1) * _T, j * _T:(j + 1) * _T] = v
-        widest, n_phases = max(widest, width), n_phases + 1
+            writes = task(get)
+            keys = set()
+            for (name, r0, c0), v in writes.items():
+                keys |= _tile_keys(name, r0, r0 + v.shape[0], c0, c0 + v.shape[1])
+            done.append((reads, keys, writes))
+        writers = collections.Counter(k for _, keys, _ in done for k in keys)
+        for reads, keys, _ in done:
+            assert all(writers[k] == (k in keys) for k in reads | keys), \
+                "a tile is shared within a phase"
+        for _, _, writes in done:
+            for (name, r0, c0), v in writes.items():
+                self.state[name][r0:r0 + v.shape[0], c0:c0 + v.shape[1]] = v
+        self.n_phases += 1
+        self.widest = max(self.widest, len(tasks) if width is None else width)
 
-    zero = torch.zeros((_T, _T), dtype=A.dtype)
+
+def _panel_phases(B, at, dtype):
+    """The panel schedule on tiles, step by step: (phase (a)'s tasks, its
+    width without the set-up, phase (b)'s tasks). `at(m, i, j)` places tile
+    (i, j) of the panel's matrix m ("A", "L" or "Li") in the state as
+    (name, row, col)."""
+    nt = B // _T
+    zero = torch.zeros((_T, _T), dtype=dtype)
+
+    def tile(get, m, i, j):
+        name, r, c = at(m, i, j)
+        return get(name, r, r + _T, c, c + _T)
 
     def diag(k):  # block 0: step k-1's update of tile (k, k), then its factor
         def task(get):
             if k == 0:
-                d = get("A", 0, 0)
+                d = tile(get, "A", 0, 0)
             else:
-                d = get("L", k, k) - get("L", k, k - 1) @ get("L", k, k - 1).T
+                p = tile(get, "L", k, k - 1)
+                d = tile(get, "L", k, k) - p @ p.T
             Ld, X = _factor_tile(d)
-            return {("L", k, k): Ld, ("Li", k, k): X}
+            return {at("L", k, k): Ld, at("Li", k, k): X}
         return task
 
     def setup(i, j):  # A's lower tiles into L, zeros above the diagonal and in W
         if j > i:
-            return lambda get: {("L", i, j): zero, ("Li", i, j): zero}
-        return lambda get: {("L", i, j): get("A", i, j), ("Li", i, j): zero}
+            return lambda get: {at("L", i, j): zero, at("Li", i, j): zero}
+        return lambda get: {at("L", i, j): tile(get, "A", i, j), at("Li", i, j): zero}
 
     def trailing(k, i, j):  # step k-1's update of tile (i, j)
-        return lambda get: {("L", i, j): get("L", i, j) - get("L", i, k - 1) @ get("L", j, k - 1).T}
+        return lambda get: {at("L", i, j): tile(get, "L", i, j)
+                            - tile(get, "L", i, k - 1) @ tile(get, "L", j, k - 1).T}
 
     def gather(k, i, j):  # W[i, j] += L[i, k-1] L^-1[k-1, j], in L^-1's tile
-        return lambda get: {("Li", i, j):
-                            get("Li", i, j) + get("L", i, k - 1) @ get("Li", k - 1, j)}
+        return lambda get: {at("Li", i, j): tile(get, "Li", i, j)
+                            + tile(get, "L", i, k - 1) @ tile(get, "Li", k - 1, j)}
 
     def panel(k, r):
-        return lambda get: {("L", r, k): get("L", r, k) @ get("Li", k, k).T}
+        return lambda get: {at("L", r, k): tile(get, "L", r, k) @ tile(get, "Li", k, k).T}
 
     def inv_row(k, j):  # L^-1[k, j] = -D_k W[k, j]
-        return lambda get: {("Li", k, j): -(get("Li", k, k) @ get("Li", k, j))}
+        return lambda get: {at("Li", k, j): -(tile(get, "Li", k, k) @ tile(get, "Li", k, j))}
 
     for k in range(nt):
         a = [diag(k)]
@@ -237,12 +262,23 @@ def _panel_schedule_model(A, merge_phases=False):
         if k == 0:
             a += [setup(i, j) for i in range(nt) for j in range(nt) if (i, j) != (0, 0)]
         b = [inv_row(k, j) for j in range(k)] + [panel(k, r) for r in range(k + 1, nt)]
+        yield a, width, b
+
+
+def _panel_schedule_model(A, merge_phases=False):
+    """(L, L^-1, tile tasks in the widest phase, phases) of the f32 matrix A
+    by the kernel's schedule. The set-up is not counted in the width: the
+    kernel spreads it element by element over whatever grid it has.
+    `merge_phases` drops the grid sync between each step's phases (a) and
+    (b), to show that the model catches it."""
+    ph = _Phases(A=A, L=torch.empty_like(A), Li=torch.empty_like(A))
+    for a, width, b in _panel_phases(A.shape[0], lambda m, i, j: (m, i * _T, j * _T), A.dtype):
         if merge_phases:
-            run(a + b, width + len(b))
+            ph.run(a + b, width + len(b))
         else:
-            run(a, width)
-            run(b, len(b))
-    return state["L"], state["Li"], widest, n_phases
+            ph.run(a, width)
+            ph.run(b, len(b))
+    return ph.state["L"], ph.state["Li"], ph.widest, ph.n_phases
 
 
 @functools.lru_cache(maxsize=None)
@@ -297,6 +333,244 @@ def test_panel_schedule_model_catches_a_missing_grid_sync():
         _panel_schedule_model(torch.from_numpy(_spd(256)), merge_phases=True)
 
 
+# ---------------------------------------------------------------------------
+# The single launch (single_launch_kernel): for each B-wide panel column c,
+# the correction as a deep product (pieces, then their sums), the diagonal
+# block by the panel's phases, the apply as a deep product (pieces, then
+# their sums beside the zeros above the block). A deep product cuts its
+# (tile, slice) iterations into one range a block (stream-K): a block writes
+# a tile its range holds whole and leaves a piece of any other in its slot
+# 2b (its range's head) or 2b + 1 (its tail); the sums add a tile's pieces in
+# block order.
+# ---------------------------------------------------------------------------
+
+_DT, _DK = 128, 16  # the deep product's tile edge and slice depth
+
+
+def _sk_start(I, b, G):
+    return I * b // G
+
+
+def _sk_block_of(x, I, G):
+    """The block whose range holds iteration x."""
+    return ((x + 1) * G + I - 1) // I - 1
+
+
+def _stream_k(T, nk, G):
+    """{block: [(tile, first slice, end slice, slot or None if whole)]}."""
+    I = T * nk
+    out = {}
+    for b in range(G):
+        s, e = _sk_start(I, b, G), _sk_start(I, b + 1, G)
+        segs, it = [], s
+        while it < e:
+            t = it // nk
+            stop = min(e, (t + 1) * nk)
+            k0, k1 = it - t * nk, stop - t * nk
+            segs.append((t, k0, k1, None if (k0, k1) == (0, nk) else 2 * b + (it != s)))
+            it = stop
+        out[b] = segs
+    return out
+
+
+def _pieces_of(t, nk, T, G):
+    """The slots the sums add for tile t, in order; None if one block wrote
+    it whole; [] at depth 0 (the tile is cin)."""
+    if nk == 0:
+        return []
+    I, t0 = T * nk, t * nk
+    bf, bl = _sk_block_of(t0, I, G), _sk_block_of(t0 + nk - 1, I, G)
+    if bf == bl:
+        return None
+    return [2 * b + (_sk_start(I, b, G) < t0) for b in range(bf, bl + 1)
+            if _sk_start(I, b + 1, G) > _sk_start(I, b, G)]
+
+
+def _product_phases(G, out, cin, A, Bm, rows, cols, K, sign):
+    """The deep product out = cin + sign A Bm^T (each operand given as
+    (name, row, col) of its first element): its pieces' phase, then its
+    sums' phase."""
+    ct, nk = cols // _DT, K // _DK
+    T = rows // _DT * ct
+
+    def at(ref, r0, r1, c0, c1, get):
+        name, r, c = ref
+        return get(name, r + r0, r + r1, c + c0, c + c1)
+
+    def piece_task(segs):
+        def task(get):
+            writes = {}
+            for t, k0, k1, slot in segs:
+                r0, c0 = t // ct * _DT, t % ct * _DT
+                prod = (at(A, r0, r0 + _DT, k0 * _DK, k1 * _DK, get)
+                        @ at(Bm, c0, c0 + _DT, k0 * _DK, k1 * _DK, get).T)
+                if slot is None:
+                    v = sign * prod
+                    if cin is not None:
+                        v = v + at(cin, r0, r0 + _DT, c0, c0 + _DT, get)
+                    writes[(out[0], out[1] + r0, out[2] + c0)] = v
+                else:
+                    writes[("part", slot * _DT, 0)] = prod
+            return writes
+        return task
+
+    def sum_task(t, slots):
+        def task(get):
+            r0, c0 = t // ct * _DT, t % ct * _DT
+            v = torch.zeros((_DT, _DT), dtype=torch.float32)
+            for slot in slots:
+                v = v + get("part", slot * _DT, (slot + 1) * _DT, 0, _DT)
+            v = sign * v
+            if cin is not None:
+                v = v + at(cin, r0, r0 + _DT, c0, c0 + _DT, get)
+            return {(out[0], out[1] + r0, out[2] + c0): v}
+        return task
+
+    pieces = [piece_task(segs) for segs in _stream_k(T, nk, G).values() if segs]
+    sums = [sum_task(t, slots) for t in range(T)
+            if (slots := _pieces_of(t, nk, T, G)) is not None]
+    return pieces, sums
+
+
+def _single_launch_schedule_model(K, B, G, drop_sync=None):
+    """(L, phases) of the f32 matrix K by the single launch's schedule on a
+    grid of G blocks. `drop_sync` drops that grid sync (merges the phases
+    on either side of it), to show that the model catches it."""
+    n = K.shape[0]
+    phases = []
+    for c in range(0, n, B):
+        phases += _product_phases(G, ("acc", c, 0), ("out", c, c), ("out", c, 0), ("out", c, 0),
+                                  n - c, B, c, -1.0)
+
+        def at(m, i, j, c=c):
+            return {"A": ("acc", c + i * _T, j * _T), "L": ("out", c + i * _T, c + j * _T),
+                    "Li": ("linv", i * _T, j * _T)}[m]
+
+        for a, _, b in _panel_phases(B, at, K.dtype):
+            phases += [a, b]
+        pieces, sums = _product_phases(G, ("out", c + B, c), None, ("acc", c + B, 0),
+                                       ("linv", 0, 0), n - c - B, B, B, 1.0)
+        if c > 0:
+            sums.append(lambda get, c=c: {("out", 0, c): torch.zeros((c, B))})
+        phases += [pieces, sums]
+    if drop_sync is not None:
+        phases[drop_sync:drop_sync + 2] = [phases[drop_sync] + phases[drop_sync + 1]]
+    ph = _Phases(out=K, acc=torch.zeros((n, B)), linv=torch.zeros((B, B)),
+                 part=torch.zeros((2 * G * _DT, _DT)))
+    for tasks in phases:
+        ph.run(tasks)
+    return ph.state["out"], ph.n_phases
+
+
+@functools.lru_cache(maxsize=None)
+def _single_refs(B):
+    """The Pallas single launch (interpret mode, R = 256) and the plain
+    version on _spd(512)."""
+    K = _spd(512, seed=3)
+    with jax.enable_x64(False):
+        pallas = np.asarray(study.single_launch_cholesky(jnp.asarray(K), B=B, R=256))
+    plain = ck.single_launch_cholesky_plain(torch.from_numpy(K), B=B, R=256).numpy()
+    return K, {"pallas": pallas, "plain": plain}
+
+
+@pytest.mark.parametrize("ref", ["pallas", "plain"])
+@pytest.mark.parametrize("B", [128, 256])
+def test_single_launch_schedule_model_matches(B, ref):
+    """The kernel's schedule on 7 blocks gives the Pallas single launch's
+    and the plain version's L within 1e-5 of max|.| (f32 summation orders of
+    a well-conditioned factorization), exact zeros above the diagonal, and
+    its phases less one are the grid syncs the kernel counts."""
+    K, refs = _single_refs(B)
+    L, n_phases = _single_launch_schedule_model(torch.from_numpy(K), B, 7)
+    _close(L, refs[ref], 1e-5)
+    assert not torch.triu(L, 1).any()
+    assert n_phases - 1 == ck.single_launch_grid_syncs(512, B)
+    assert len(ck.single_launch_phases(512, B)) == n_phases
+
+
+@pytest.mark.parametrize("G", [1, 2, 264])
+def test_single_launch_schedule_model_on_any_grid(G):
+    """One block, two, and more blocks than the products have iterations
+    (empty ranges): the same factor within 1e-5 of max|.|."""
+    K, refs = _single_refs(128)
+    L, _ = _single_launch_schedule_model(torch.from_numpy(K), 128, G)
+    _close(L, refs["plain"], 1e-5)
+
+
+@pytest.mark.parametrize("G", [1, 2, 7, 264])
+def test_single_launch_split_covers_each_depth_once(G):
+    """On each grid, for products of 1-160 tiles and depths 0-640 slices:
+    every slice of every tile falls in exactly one block's range; a tile is
+    written whole by one block or summed from exactly its pieces' slots,
+    each slot holding one piece; a block leaves at most two pieces."""
+    for T, nk in ((1, 1), (4, 16), (7, 3), (156, 16), (160, 640), (3, 0)):
+        cover = collections.Counter()
+        whole, pieces = set(), collections.defaultdict(set)
+        slots = collections.Counter()
+        for b, segs in _stream_k(T, nk, G).items():
+            assert sum(slot is not None for *_, slot in segs) <= 2
+            for t, k0, k1, slot in segs:
+                cover.update((t, k) for k in range(k0, k1))
+                if slot is None:
+                    whole.add(t)
+                else:
+                    assert slot in (2 * b, 2 * b + 1)
+                    pieces[t].add(slot)
+                    slots[slot] += 1
+        assert cover == collections.Counter({(t, k): 1 for t in range(T) for k in range(nk)})
+        assert all(v == 1 for v in slots.values())
+        for t in range(T):
+            got = _pieces_of(t, nk, T, G)
+            if nk == 0:
+                assert got == []
+            elif got is None:
+                assert t in whole and t not in pieces
+            else:
+                assert t not in whole and got == sorted(pieces[t], key=lambda s: (s // 2, s))
+                assert len(got) >= 2
+
+
+@pytest.mark.parametrize("drop", ["correction", "diagonal", "apply"])
+def test_single_launch_schedule_model_catches_a_dropped_sync(drop):
+    """Without the sync after the correction's pieces (the sums read slots
+    being written), after the diagonal block (the apply reads L^-1 while it
+    is formed) or after the apply's pieces of panel 1, the model fails."""
+    nt = 128 // _T
+    per_panel = 2 * nt + 4
+    sync = {"correction": per_panel, "diagonal": per_panel + 2 + 2 * nt - 1,
+            "apply": per_panel + 2 * nt + 2}[drop]
+    with pytest.raises(AssertionError, match="shared within a phase"):
+        _single_launch_schedule_model(torch.from_numpy(_spd(512, seed=3)), 128, 7, drop_sync=sync)
+
+
+def test_single_launch_schedule_model_on_an_indefinite_matrix():
+    """Pivot 300 of 512 negative: the launch's schedule gives NaN from that
+    pivot on and finite values before it, equal to the plain version's."""
+    K = _spd(512, seed=3)
+    K[300, 300] = -1e4
+    L, _ = _single_launch_schedule_model(torch.from_numpy(K), 128, 7)
+    L0 = ck.single_launch_cholesky_plain(torch.from_numpy(K), B=128, R=256)
+    assert torch.isnan(L[300, 300]) and torch.isnan(L[300:, 300]).all()
+    assert torch.isfinite(L[:300, :300]).all()
+    _close(L[:300, :300], L0[:300, :300], 1e-5)
+    np.testing.assert_array_equal(torch.tril(L).isnan().numpy(), torch.tril(L0).isnan().numpy())
+
+
+def test_single_launch_split_sums_the_stamps():
+    """single_launch_split adds each phase's time (stamp to next stamp) to
+    its part; the phase list has one entry more than the grid syncs."""
+    n, B = 512, 256
+    phases = ck.single_launch_phases(n, B)
+    assert len(phases) == ck.single_launch_grid_syncs(n, B) + 1 == 2 * (2 * 4 + 4)
+    ns = {"correction": 1000, "diagonal": 20000, "apply": 300000}
+    stamps = torch.tensor([0] + [ns[p] for p in phases], dtype=torch.int64).cumsum(0)
+    split = ck.single_launch_split(stamps, n, B)
+    assert split == pytest.approx({"correction_ms": 4 * 1e-3, "diagonal_ms": 16 * 0.02,
+                                   "apply_ms": 4 * 0.3})
+    with pytest.raises(ValueError, match="stamps"):
+        ck.single_launch_split(stamps[:-1], n, B)
+
+
 def test_panel_fit_recovers_its_terms():
     """Times made from c_step = 20 us and 10 TFLOP/s give them back."""
     cases = [cs.PanelCase(2 * (B // 64) * 0.02 + 2 * B**3 / 3 / 1e13 * 1e3, 0, 0, 0, 0, None,
@@ -312,6 +586,24 @@ def test_panel_parts_needs_the_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert panel_parts.main([]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_single_parts_needs_the_card(monkeypatch, capsys):
+    """The single launch's parts measurement refuses to run without a CUDA
+    device and builds nothing on the way."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert single_parts.main([]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("device, match", [("cpu", "single_launch_cholesky_on_grid"),
+                                           ("meta", "no kernel")])
+def test_single_launch_on_grid_refuses_off_the_card(device, match):
+    """The chosen-grid entry launches only on a CUDA tensor: no plain
+    version stands in for it."""
+    with pytest.raises(ValueError, match=match):
+        ck.single_launch_cholesky_on_grid(torch.eye(512, device=device), 2)
+    assert ck.LAUNCHES["single_launch_cholesky"] == 0
 
 
 @pytest.mark.parametrize("call", [

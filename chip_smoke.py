@@ -8,19 +8,25 @@ Phases, each of which exits non-zero on the first failure:
   1. the card: name and power limit (nvidia-smi), TF32 settings (both off);
   2. build every kernel, and the single launch's parts measurement (all
      nvcc processes at once), with ptxas's report;
-  3. the gram kernel against its plain version on the card: every profile
-     family, iso and ARD, symmetric and cross, f32 and f64, n = 300 and
-     3000, d = 10;
+  3. the gram kernel and its VJP kernel against their plain versions on the
+     card: every profile family, iso and ARD, symmetric and cross, f32 and
+     f64, n = 300 and 3000, d = 10, the VJP with the hyperparameters' gradient
+     alone and with the inputs' too, and run twice for identical bits; then
+     both at a ragged n on grids of 1 and 7 blocks, where each block walks
+     many tiles;
   4. the headline main path: GPE target and gradient, SE, n = 3000, d = 10,
      f32 on the card, against the same model in f64 on the CPU (plain path)
      and in f64 on the card;
   5. the flagship composite SE + RQ*Matern32 with MeanConst at n = 3000;
   6. a few L-BFGS-B steps (`optimize(maxiter=10)`) on the headline model;
   7. prediction at 500 new points (the cross-gram path);
-  8. times from CUDA events: the gram kernel beside its bound, its plain
-     version and torch.cdist, and the headline evaluation split into its
-     parts; the host's enqueue time of one evaluation; then five headline
-     evaluations under torch.profiler (device time by kernel and by
+  8. times (perf/gram_study.py): each gram kernel's own device time
+     (torch.profiler) beside its time per call (CUDA events), its host
+     enqueue, its bound and its plain version's time, torch.cdist beside the
+     forward, at n = 3000 and 16384 (the VJP at 3000); the backward of one
+     gram as autograd runs it, by model; the headline evaluation split into
+     its parts; the host's enqueue time of one evaluation; then five
+     headline evaluations under torch.profiler (device time by kernel and by
      operator, and the device-busy share);
   9. the Cholesky study's kernels (csrc/cholesky.cu) and its SE gram against
      their plain versions on the card: the launch probe exactly, the study
@@ -45,14 +51,14 @@ Phases, each of which exits non-zero on the first failure:
      the rate of its deep product beside `gemm_tile`'s
      (perf/single_parts.py).
 The kernel launch counts are set to 0 before each main-path call and read
-after it. The last three lines are the kernel table (JSON), the card, and
+after it: one evaluation launches the forward and the VJP kernel once for
+each stationary gram, prediction only the forward. The last three lines are the kernel table (JSON), the card, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -63,19 +69,24 @@ import torch
 import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels as chol_op
 from gaussianprocesses_jl_tpu_torch.ops import cuda, gram as gram_op
+from gaussianprocesses_jl_tpu_torch.ops.distance import sqdist
 from gaussianprocesses_jl_tpu_torch.ops.linalg import (
     add_diag,
     tri_inv_lower,
     tri_syrk_lower,
 )
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
-from gaussianprocesses_jl_tpu_torch.perf import single_parts
+from gaussianprocesses_jl_tpu_torch.perf import gram_study, single_parts
+from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
+    F32_FLOPS,
+    HBM_BYTES_PER_S,
+    enqueue_ms,
+    gram_bound_ms,
+    gram_vjp_bound_ms,
+    profile_ms,
+    time_ms,
+)
 from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
-
-# H100 SXM published peaks (NVIDIA data sheet), for the bounds
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12  # outside the tensor cores
-F64_FLOPS = 34e12
 
 N_HEAD, D = 3000, 10
 
@@ -91,42 +102,13 @@ def card_line() -> str:
 
 
 def launches(fn):
-    """(result, gram launches) of one main-path call, counted from 0."""
-    gram_op.LAUNCHES["gram"] = 0
+    """(result, (gram launches, gram_vjp launches)) of one main-path call,
+    counted from 0."""
+    for name in gram_op.LAUNCHES:
+        gram_op.LAUNCHES[name] = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, gram_op.LAUNCHES["gram"]
-
-
-def time_ms(fn, reps=20, warmup=3) -> float:
-    """Median milliseconds of fn() over `reps` runs, each between two CUDA
-    events, after `warmup` runs."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def enqueue_ms(fn, reps=20) -> float:
-    """Median host milliseconds for fn() to return, without waiting for the
-    card: near the CUDA-event time, the call is bound by the host."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        times.append(1e3 * (time.perf_counter() - t0))
-    torch.cuda.synchronize()
-    return statistics.median(times)
+    return out, (gram_op.LAUNCHES["gram"], gram_op.LAUNCHES["gram_vjp"])
 
 
 def device_profile(fn, reps=5, top=10):
@@ -142,17 +124,6 @@ def device_profile(fn, reps=5, top=10):
 
     busy_ms = sum(ms for ms, _ in kernels.values())
     return busy_ms, ranked(kernels), ranked(ops)
-
-
-def gram_bound_ms(n1, n2, d, itemsize, sym):
-    """Least time for one gram: inputs read once and the output written
-    once at the memory rate, or ~3d + 4 operations per output at the
-    non-tensor rate, whichever is larger."""
-    nbytes = itemsize * (n1 * d + (0 if sym else n2 * d) + 3 + n1 * n2)
-    ops = n1 * n2 * (3 * d + 4)
-    peak = F32_FLOPS if itemsize == 4 else F64_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def stationary_kernels():
@@ -203,12 +174,152 @@ def phase_kernel_vs_plain(dev) -> float:
                           f"(atol {tol * sig2:.1e}) {'ok' if ok else 'FAIL'}")
                     if not ok:
                         fail(f"gram kernel disagrees with its plain version: {name}")
-                    d0 = float(k._r2profile(torch.zeros((), dtype=dtype, device=dev)))
-                    if sym and float((K.diagonal() - d0).abs().max()) > tol * sig2:
-                        fail(f"gram kernel diagonal is not profile(0): {name}")
+                    d0 = k._r2profile(torch.zeros((), dtype=dtype, device=dev))
+                    if sym and not bool((K.diagonal() == d0).all()):
+                        fail(f"gram kernel diagonal is not exactly profile(0): {name}")
                     if dtype == torch.float32:
                         worst32 = max(worst32, err)
     return worst32
+
+
+def vjp_scales(family, p, X1, X2, G):
+    """Sums of magnitudes that bound the VJP's rounding: sum_ij |G_ij|
+    |dK_ij/dp| for each hyperparameter; |x_i| sum_j |W_ij| + sum_j |W_ij|
+    |x_j| for each input (W = 2 G dK/dr2, both sides on a symmetric gram)."""
+    K, dll, dex, dr2 = gram_op.gram_derivs(family, p, sqdist(X1, X2))
+    A = G.abs()
+    dp = torch.stack([2 * (A * K.abs()).sum(), (A * dll.abs()).sum(), (A * dex.abs()).sum()])
+    W = 2 * A * dr2.abs()
+    if X2 is None:
+        W, X2 = W + W.T, X1
+    return (dp, X1.abs() * W.sum(1, keepdim=True) + W @ X2.abs(),
+            X2.abs() * W.sum(0)[:, None] + W.T @ X1.abs())
+
+
+def check_vjp(got, ref, scales, tol):
+    """(max |got - ref|, max |got - ref| / (tol scale)) over the outputs asked
+    for; the second must not pass 1."""
+    err = ratio = 0.0
+    for a, b, s in zip(got, ref, scales):
+        if (a is None) != (b is None):
+            fail("gram_vjp returned other outputs than its plain version")
+        if a is not None:
+            diff = (a - b).abs()
+            err = max(err, float(diff.max()))
+            ratio = max(ratio, float((diff / (tol * s)).nan_to_num(0.0, posinf=math.inf).max()))
+    return err, ratio
+
+
+def phase_vjp_vs_plain(dev) -> tuple:
+    """The VJP kernel against `gram_vjp_plain` over the same grid of cases
+    as the forward, on a random cotangent that is not symmetric, with
+    the hyperparameters' gradient alone and with the inputs' too.
+    Tolerance: each output within tol of its sum of magnitudes
+    (`vjp_scales`), tol = 1e-5 in f32 (two f32 sums of up to n^2 terms in
+    different orders, and r2 from the plain version's expansion, a few ulp
+    of |x|^2 off) and 1e-12 in f64. A second launch must give the same
+    bits. Returns (largest f32 absolute difference, largest ratio)."""
+    rng = np.random.RandomState(2)
+    worst32 = worst = 0.0
+    for n in (300, N_HEAD):
+        X1np, X2np = rng.randn(n, D), rng.randn(n // 2 + 7, D)
+        Gnp = {True: rng.randn(n, n), False: rng.randn(n, n // 2 + 7)}
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            X1 = torch.as_tensor(X1np, dtype=dtype, device=dev)
+            X2 = torch.as_tensor(X2np, dtype=dtype, device=dev)
+            for name, kern in stationary_kernels():
+                k = kern.to(dtype=dtype, device=dev)
+                p = k._gram_params()
+                for sym in (True, False):
+                    A, B = k._scale(X1), None if sym else k._scale(X2)
+                    G = torch.as_tensor(Gnp[sym], dtype=dtype, device=dev)
+                    scales = vjp_scales(k._family, p, A, B, G)
+                    line = []
+                    for needs in ((True, False, False), (True, True, not sym)):
+                        got = gram_op.launch_gram_vjp(k._family, p, A, B, G, needs)
+                        again = gram_op.launch_gram_vjp(k._family, p, A, B, G, needs)
+                        ref = gram_op.gram_vjp_plain(k._family, p, A, B, G, needs)
+                        torch.cuda.synchronize()
+                        same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+                        err, ratio = check_vjp(got, ref, scales, tol)
+                        ok = same and ratio <= 1.0
+                        line.append(f"{'dp' if not needs[1] else 'dp+dX'} {err:.3e} "
+                                    f"({ratio:.3f} of tol, same bits {same}) "
+                                    f"{'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            fail(f"gram_vjp disagrees with its plain version or between runs: "
+                                 f"{name} n={n} sym={sym} {dtype} {needs}")
+                        worst = max(worst, ratio)
+                        if dtype == torch.float32:
+                            worst32 = max(worst32, err)
+                    print(f"  gram_vjp {name:9s} n={n:5d} {'sym  ' if sym else 'cross'} "
+                          f"{str(dtype)[6:]}: max|vjp - plain| " + "; ".join(line))
+    return worst32, worst
+
+
+def phase_walks(dev) -> None:
+    """Both kernels at a ragged n = 1001 (16 tiles a side) on grids of 1 and
+    7 blocks and on the full grid, so that each block walks many tiles:
+    the forward within atol 1e-5 sigma^2 of its plain version, the VJP
+    within 1e-5 of its sums of magnitudes, f32."""
+    rng = np.random.RandomState(3)
+    X1 = torch.as_tensor(rng.randn(1001, D), dtype=torch.float32, device=dev)
+    X2 = torch.as_tensor(rng.randn(507, D), dtype=torch.float32, device=dev)
+    for name, kern in (("SEIso", gp.SE(0.3, 0.1)), ("Periodic", gp.Periodic(ll=0.1, lsigma=0.05, lp=0.5)),
+                       ("Mat32Ard", gp.Matern(1.5, np.linspace(-0.3, 0.3, D), 0.2))):
+        k = kern.to(dtype=torch.float32, device=dev)
+        p, sig2 = k._gram_params(), float(torch.exp(2 * k.lsigma))
+        for sym in (True, False):
+            A, B = k._scale(X1), None if sym else k._scale(X2)
+            G = torch.as_tensor(rng.randn(1001, 1001 if sym else 507), dtype=torch.float32,
+                                device=dev)
+            K0 = gram_op.gram_plain(k._family, p, A, B)
+            ref = gram_op.gram_vjp_plain(k._family, p, A, B, G)
+            scales = vjp_scales(k._family, p, A, B, G)
+            for grid in (1, 7, 0):
+                K = gram_op.launch_gram(k._family, p, A, B, grid=grid)
+                err = float((K - K0).abs().max())
+                verr, ratio = check_vjp(gram_op.launch_gram_vjp(k._family, p, A, B, G, grid=grid),
+                                        ref, scales, 1e-5)
+                ok = err <= 1e-5 * sig2 and ratio <= 1.0
+                print(f"  walk {name:8s} n=1001 {'sym  ' if sym else 'cross'} on "
+                      f"{grid or 'all':>3} blocks: max|K - plain| {err:.3e}, max|vjp - plain| "
+                      f"{verr:.3e} ({ratio:.3f} of tol) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"tile walk on {grid} blocks disagrees with the plain version: {name}")
+
+
+def phase_vjp_times(dev) -> dict:
+    """The VJP kernel at n = 3000, d = 10, f32, on a random cotangent: the
+    headline's SE (hyperparameters alone) and an ARD SE (the inputs' gradient
+    too): own device time of its two kernels (torch.profiler), time per call
+    (CUDA events), host enqueue, bound, and the plain version's time."""
+    X = torch.as_tensor(np.random.RandomState(4).randn(N_HEAD, D), dtype=torch.float32,
+                        device=dev)
+    G = torch.as_tensor(np.random.RandomState(5).randn(N_HEAD, N_HEAD), dtype=torch.float32,
+                        device=dev)
+    rows = {}
+    for label, kern, needs in (("SE dp", gp.SE(0.0, 0.0), (True, False, False)),
+                               ("SE ARD dp+dX", gp.SE(np.linspace(-0.2, 0.3, D), 0.1),
+                                (True, True, False))):
+        k = kern.to(dtype=torch.float32, device=dev)
+        p, A = k._gram_params(), k._scale(X)
+        call = lambda: gram_op.launch_gram_vjp(k._family, p, A, None, G, needs)  # noqa: E731
+        own, n_kernels, by_kernel = profile_ms(call, match="gram_vjp")
+        # the VJP kernel and its reduction, by the kernel's name
+        split = {("reduce" if "reduce" in key else "vjp"): ms for key, ms in by_kernel.items()}
+        b_ms, b_by = gram_vjp_bound_ms(N_HEAD, N_HEAD, D, 4, True, needs[1])
+        rows[label] = row = {
+            "own_ms": own, "own_ms_by_kernel": split, "kernels_per_call": n_kernels,
+            "call_ms": time_ms(call),
+            "enqueue_ms": enqueue_ms(call), "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": time_ms(lambda: gram_op.gram_vjp_plain(k._family, p, A, None, G, needs))}
+        print(f"  gram_vjp {label} f32 n={N_HEAD}: own {own:.4f} ms in {n_kernels:.0f} kernels "
+              f"(vjp {split.get('vjp', 0.0):.4f} ms, reduce {split.get('reduce', 0.0):.4f} ms) "
+              f"({100 * b_ms / own:.1f}% of the {b_by} bound {b_ms:.4f} ms), call "
+              f"{row['call_ms']:.4f} ms, enqueue {row['enqueue_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms")
+    return rows
 
 
 def check_close(what, got, ref, rtol, atol=0.0):
@@ -230,9 +341,10 @@ def phase_model(name, make, expect_launches):
     gradient rtol 1e-8 with atol 1e-10 max|g|."""
     m32 = make(np.float32, None)
     (t, g), n_launch = launches(m32.target_and_dtarget)
-    print(f"{name}: f32 card target {float(t):.6f}, {n_launch} gram launches")
-    if n_launch != expect_launches:
-        fail(f"{name}: expected {expect_launches} gram launches, got {n_launch}")
+    print(f"{name}: f32 card target {float(t):.6f}, {n_launch[0]} gram and {n_launch[1]} "
+          f"gram_vjp launches")
+    if n_launch != (expect_launches, expect_launches):
+        fail(f"{name}: expected {expect_launches} gram and gram_vjp launches, got {n_launch}")
     if not (bool(torch.isfinite(t)) and bool(torch.isfinite(g).all())):
         fail(f"{name}: non-finite target or gradient")
     t_ref, g_ref = make(np.float64, "cpu").target_and_dtarget()
@@ -251,7 +363,8 @@ N_STUDY_GRAM = 3072
 
 
 def reset_launches() -> None:
-    gram_op.LAUNCHES["gram"] = 0
+    for name in gram_op.LAUNCHES:
+        gram_op.LAUNCHES[name] = 0
     for name in chol_op.LAUNCHES:
         chol_op.LAUNCHES[name] = 0
 
@@ -514,9 +627,13 @@ def phase_study_times(dev, card) -> dict:
               f"card; its chain of {n} dependent adds at 4 cycles each at the maximum SM "
               f"clock ({clock_hz / 1e9:.3f} GHz): {1e3 * chain_ms[n]:.3f} us")
     print(f"  probe n_iter=512: host enqueue of one call {1e3 * probe_enqueue_ms:.3f} us")
-    probe_bytes_ms = bound(2 * 8 * 128 * 4, 0)[0]
-    probe_bound = ((chain_ms[512], "operations") if chain_ms[512] >= probe_bytes_ms
-                   else (probe_bytes_ms, "bytes"))
+    # one launch's floor on the card (the probe with no adds, measured) plus
+    # the chain of 512 dependent adds
+    floor_ms = probe[0][1]
+    probe_bound = (floor_ms + chain_ms[512], "operations")
+    print(f"  probe bound: floor {1e3 * floor_ms:.3f} us + chain {1e3 * chain_ms[512]:.3f} us "
+          f"= {1e3 * probe_bound[0]:.3f} us; the probe at 512 adds reaches "
+          f"{100 * probe_bound[0] / probe[512][1]:.1f}% of it")
     B, n = STUDY_BLOCK, N_STUDY
     rows = {
         "se_gram_study": (grams[N_STUDY_GRAM][1], plain["se_gram_study"],
@@ -536,7 +653,7 @@ def phase_study_times(dev, card) -> dict:
                                                        for k, v in panels.items()},
                             "fit_c_step_ms": c_step_ms, "fit_rate_tflops": panel_rate}),
         "launch_probe": (probe[512][1], plain["launch_probe"], probe_bound, None,
-                         {"call_ms": probe[512][0],
+                         {"call_ms": probe[512][0], "floor_ms": floor_ms,
                           "call_ms_by_n_iter": {n: v[0] for n, v in probe.items()},
                           "ms_by_n_iter": {n: v[1] for n, v in probe.items()},
                           "enqueue_ms": probe_enqueue_ms}),
@@ -583,9 +700,13 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {src}:   {line.strip()}")
 
-    # 3. kernel against its plain version
+    # 3. kernels against their plain versions
     print("phase 3: gram kernel vs plain version")
     worst32 = phase_kernel_vs_plain(dev)
+    print("phase 3: gram_vjp kernel vs plain version")
+    vjp_worst32, vjp_ratio = phase_vjp_vs_plain(dev)
+    print("phase 3: both kernels' tile walks on small grids")
+    phase_walks(dev)
 
     # 4. headline: BASELINE's mll + gradient, SE, n = 3000, d = 10
     rng = np.random.RandomState(42)
@@ -596,6 +717,7 @@ def main() -> int:
                       gp.SE(0.0, 0.0), lognoise=-1.0, device=device)
 
     m, main_launches = phase_model("headline SE", headline, 1)
+    main_launches = list(main_launches)
 
     # 5. flagship composite at full width
     rng0 = np.random.RandomState(0)
@@ -607,45 +729,36 @@ def main() -> int:
                       kern, lognoise=-1.0, device=device)
 
     _, n_flag = phase_model("flagship SE+RQ*Mat32", flagship, 3)
-    main_launches += n_flag
+    main_launches = [a + b for a, b in zip(main_launches, n_flag)]
 
     # 6. trainer
     t_start = float(m.target)
     res, n_opt = launches(lambda: m.optimize(maxiter=10))
     t_end = float(m.target)
     print(f"optimize(maxiter=10): target {t_start:.6f} -> {t_end:.6f}, "
-          f"{res.n_iter} iterations, {n_opt} gram launches, {res.message}")
-    if not (np.isfinite(t_end) and t_end >= t_start and n_opt >= 1):
+          f"{res.n_iter} iterations, {n_opt[0]} gram and {n_opt[1]} gram_vjp launches, "
+          f"{res.message}")
+    if not (np.isfinite(t_end) and t_end >= t_start and min(n_opt) >= 1):
         fail("optimize: target not finite, lower than at the start, or no launches")
-    main_launches += n_opt
+    main_launches = [a + b for a, b in zip(main_launches, n_opt)]
 
     # 7. prediction at new points: the cross gram
     Xs = np.random.RandomState(7).randn(500, D)
     (mu, var), n_pred = launches(lambda: m.predict_y(Xs.astype(np.float32)))
-    print(f"predict_y at 500 points: {n_pred} gram launches, "
+    print(f"predict_y at 500 points: {n_pred[0]} gram and {n_pred[1]} gram_vjp launches, "
           f"mean range [{float(mu.min()):.4f}, {float(mu.max()):.4f}], "
           f"min variance {float(var.min()):.4e}")
     if not (bool(torch.isfinite(mu).all()) and bool(torch.isfinite(var).all())
-            and bool((var >= 0).all()) and n_pred == 2):
+            and bool((var >= 0).all()) and n_pred == (2, 0)):
         fail("predict_y: non-finite values, negative variances or wrong launches")
-    main_launches += n_pred
+    main_launches = [a + b for a, b in zip(main_launches, n_pred)]
 
     # 8. times
-    print(f"phase 8: times (median of 20 CUDA-event runs), card {card}")
-    gram_rows = {}
-    for n in (N_HEAD, 16384):
-        X = torch.as_tensor(np.random.RandomState(3).randn(n, D),
-                            dtype=torch.float32, device=dev)
-        k = gp.SE(0.0, 0.0).to(dtype=torch.float32, device=dev)
-        p = k._gram_params()
-        kern_ms = time_ms(lambda: gram_op.launch_gram(gram_op.SE, p, X))
-        plain_ms = time_ms(lambda: gram_op.gram_plain(gram_op.SE, p, X))
-        cdist_ms = time_ms(lambda: torch.cdist(X, X))
-        bound_ms, bound_by = gram_bound_ms(n, n, D, 4, True)
-        gram_rows[n] = (kern_ms, plain_ms, cdist_ms, bound_ms, bound_by)
-        print(f"  gram SE f32 n={n} d={D}: kernel {kern_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}), "
-              f"plain {plain_ms:.4f} ms, torch.cdist {cdist_ms:.4f} ms")
+    print(f"phase 8: times (own device time from torch.profiler; calls: median of 20 "
+          f"CUDA-event runs), card {card}")
+    gram_rows = gram_study.forward(dev)
+    vjp_rows = phase_vjp_times(dev)
+    backward_rows = gram_study.backward(dev)
 
     mh = headline(np.float32, None)
     total = time_ms(mh.target_and_dtarget)
@@ -683,20 +796,40 @@ def main() -> int:
     print(f"phase 11: study timings, card {card}")
     study_rows = phase_study_times(dev, card)
 
-    kern_ms, plain_ms, cdist_ms, bound_ms, bound_by = gram_rows[N_HEAD]
+    fwd, vjp = gram_rows[N_HEAD], vjp_rows["SE dp"]
     table = {"kernels": [{
         "name": "gram",
         "route": "cuda",
         "source": "gaussianprocesses_jl_tpu_torch/csrc/gram.cu",
         "replaces": "gaussianprocesses_jl_tpu/ops/pallas_gram.py:63",
-        "launches": main_launches,
+        "launches": main_launches[0],
         "max_abs_err": worst32,
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": fwd["own_ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
         "library_ms": None,
-        "cdist_ms": cdist_ms,
+        "call_ms": fwd["call_ms"],
+        "enqueue_ms": fwd["enqueue_ms"],
+        "cdist_ms": fwd["cdist_ms"],
+        "by_n": gram_rows,
+    }, {
+        "name": "gram_vjp",
+        "route": "cuda",
+        "source": "gaussianprocesses_jl_tpu_torch/csrc/gram.cu",
+        "replaces": "gaussianprocesses_jl_tpu/ops/pallas_gram.py:142",
+        "launches": main_launches[1],
+        "max_abs_err": vjp_worst32,
+        "max_err_over_tol": vjp_ratio,
+        "ms": vjp["own_ms"],
+        "plain_ms": vjp["plain_ms"],
+        "bound_ms": vjp["bound_ms"],
+        "bound_by": vjp["bound_by"],
+        "library_ms": None,
+        "call_ms": vjp["call_ms"],
+        "enqueue_ms": vjp["enqueue_ms"],
+        "by_case": vjp_rows,
+        "backward_by_gram": backward_rows,
     }]}
     study_src = {
         "se_gram_study": ("csrc/gram.cu", "perf/pallas_cholesky_study.py:102"),

@@ -8,7 +8,8 @@ Run on a machine with one NVIDIA GPU:
 Five experiments, at the study's own sizes:
 
 1. `launch` - the launch probe: one launch whose only work is a chain of
-   n_iter dependent adds, so its time is one launch plus that chain.
+   n_iter dependent adds, so its time is one launch plus that chain; at
+   n_iter = 0, one launch alone.
 2. `gram`   - the study's SE gram, through the port's `csrc/gram.cu`,
    beside its plain version, at n in {1024, 3072, 8192, 16384}.
 3. `panel`  - (L, L^-1) of one panel in one cooperative launch of
@@ -174,13 +175,14 @@ def _kernel_ms(fn, args, name: str, reps: int) -> float:
     return sum(mine)
 
 
-def study_launch_overhead(device="cuda", n_iters=(512, 4096), reps=50) -> dict:
+def study_launch_overhead(device="cuda", n_iters=(0, 512, 4096), reps=50) -> dict:
     """{n_iter: (ms per call, device ms per launch)} of the launch probe on
     a (512, 512) input of ones. The first is CUDA events around `reps`
     back-to-back calls, host wrapper included: what one launch costs its
     caller. The second is the kernel's own time on the card from
     torch.profiler (None on the CPU): one launch's device cost plus the
-    chain of n_iter dependent adds."""
+    chain of n_iter dependent adds; at n_iter = 0, the card's floor for one
+    launch."""
     A = torch.ones((512, 512), dtype=_F32, device=device)
     out = {}
     for n_iter in n_iters:

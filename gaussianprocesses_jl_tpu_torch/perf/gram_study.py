@@ -1,0 +1,188 @@
+"""The stationary gram op on the card, forward and backward.
+
+Run on a machine with one NVIDIA GPU:
+
+    python -m gaussianprocesses_jl_tpu_torch.perf.gram_study
+
+It reaches the op only through entry points that every version of the
+package has (`launch_gram`, `gram` under autograd, `gram_plain`), so it
+also measures another checkout's package when that checkout comes first on
+the path: `PYTHONPATH=<checkout> python3 <this file>`.
+
+1. forward: one symmetric SE gram, f32, d = 10, at n = 3000 and 16384: the
+   kernel's own device time (torch.profiler), the time per call (CUDA
+   events around back-to-back calls), the host's enqueue of one call, the
+   bound, the plain version and `torch.cdist` (distance only) as yardsticks;
+2. backward: the VJP of one gram as `_Gram.backward` runs it, on a random
+   n x n cotangent at n = 3000: its device time, kernel launches and host
+   enqueue per call, for the headline's SE (hyperparameters only), the
+   flagship's SE, RQ and Matern 3/2, and an ARD SE (with the inputs'
+   gradient).
+The last line of its output is the numbers as one JSON object.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+import gaussianprocesses_jl_tpu_torch as gp
+from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
+from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
+
+__all__ = ["HBM_BYTES_PER_S", "F32_FLOPS", "F64_FLOPS", "gram_bound_ms", "gram_vjp_bound_ms",
+           "time_ms", "enqueue_ms", "profile_ms", "forward", "backward_cases", "backward"]
+
+# H100 SXM published peaks (NVIDIA data sheet), for the bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12  # outside the tensor cores
+F64_FLOPS = 34e12
+D = 10
+
+
+def gram_bound_ms(n1, n2, d, itemsize, sym):
+    """Least time for one gram: inputs read once and the output written
+    once at the memory rate, or ~3d + 4 operations per output at the
+    non-tensor rate, whichever is larger."""
+    nbytes = itemsize * (n1 * d + (0 if sym else n2 * d) + 3 + n1 * n2)
+    ops = n1 * n2 * (3 * d + 4)
+    peak = F32_FLOPS if itemsize == 4 else F64_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def gram_vjp_bound_ms(n1, n2, d, itemsize, sym, need_dx):
+    """Least time for one VJP: the cotangent, the inputs and p read once and
+    dp (and the inputs' gradients) written once at the memory rate, or the
+    kernel's own operations at the non-tensor rate, whichever is larger.
+    Operations per pair (the n (n + 1) / 2 pairs i >= j of a symmetric
+    gram): 3d for the distance, 16 for the profile, its derivatives and the
+    three sums, and with the inputs' gradient 4d + 4 for W and the row and
+    column products."""
+    xsize = n1 * d + (0 if sym else n2 * d)
+    nbytes = itemsize * (n1 * n2 + xsize + 6 + (xsize if need_dx else 0))
+    pairs = n1 * (n1 + 1) // 2 if sym else n1 * n2
+    ops = pairs * (3 * d + 16 + (4 * d + 4 if need_dx else 0))
+    peak = F32_FLOPS if itemsize == 4 else F64_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_ms(fn, reps=20, warmup=3) -> float:
+    """Median milliseconds of fn() over `reps` runs, each between two CUDA
+    events, after `warmup` runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def enqueue_ms(fn, reps=20) -> float:
+    """Median host milliseconds for fn() to return, without waiting for the
+    card: near the CUDA-event time, the call is bound by the host."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def profile_ms(fn, reps=10, match=None) -> tuple:
+    """(device ms, kernel launches, {kernel: device ms}) per call of fn under
+    torch.profiler, over the kernels whose name holds `match` (all kernels
+    if None)."""
+    kernels, _ = device_ms_by_name(fn, reps=reps, warmup=2)
+    mine = {key: (ms, calls) for key, (ms, calls) in kernels.items()
+            if match is None or match in key}
+    if not mine:
+        raise RuntimeError(f"torch.profiler saw no kernel named like {match!r}")
+    return (sum(ms for ms, _ in mine.values()), sum(calls for _, calls in mine.values()),
+            {key: ms for key, (ms, _) in mine.items()})
+
+
+def forward(device, ns=(3000, 16384)) -> dict:
+    """{n: {...}} for one symmetric SE gram, f32, d = 10."""
+    out = {}
+    for n in ns:
+        X = torch.as_tensor(np.random.RandomState(3).randn(n, D), dtype=torch.float32,
+                            device=device)
+        p = torch.zeros(3, dtype=torch.float32, device=device)
+        call = lambda: gram_op.launch_gram(gram_op.SE, p, X)  # noqa: E731
+        own, launches, _ = profile_ms(call, match="gram_kernel")
+        bound, by = gram_bound_ms(n, n, D, 4, True)
+        row = {"own_ms": own, "launches_per_call": launches, "call_ms": time_ms(call),
+               "enqueue_ms": enqueue_ms(call), "bound_ms": bound, "bound_by": by,
+               "plain_ms": time_ms(lambda: gram_op.gram_plain(gram_op.SE, p, X)),
+               "cdist_ms": time_ms(lambda: torch.cdist(X, X))}
+        out[n] = row
+        print(f"forward SE f32 n={n}: own {own:.4f} ms ({100 * bound / own:.1f}% of the "
+              f"{by} bound {bound:.4f} ms), call {row['call_ms']:.4f} ms, enqueue "
+              f"{row['enqueue_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, torch.cdist "
+              f"{row['cdist_ms']:.4f} ms", flush=True)
+    return out
+
+
+def backward_cases():
+    """(name, kernel module): the main path's grams, and one ARD gram."""
+    return [("headline SE", gp.SE(0.0, 0.0)),
+            ("flagship SE", gp.SE(0.2, 0.1)),
+            ("flagship RQ", gp.RQ(0.1, 0.0, -0.2)),
+            ("flagship Mat32", gp.Matern(1.5, 0.3, 0.0)),
+            ("ARD SE (with dX)", gp.SE(np.linspace(-0.2, 0.3, D), 0.1))]
+
+
+def backward(device, n=3000) -> dict:
+    """{case: {"device_ms", "launches", "enqueue_ms"}} per backward call of
+    one gram, f32, on a random cotangent, with the hyperparameters (and, for
+    ARD, the inputs through their scaling) needing gradients."""
+    X = torch.as_tensor(np.random.RandomState(4).randn(n, D), dtype=torch.float32,
+                        device=device)
+    G = torch.as_tensor(np.random.RandomState(5).randn(n, n), dtype=torch.float32,
+                        device=device)
+    out = {}
+    for name, kern in backward_cases():
+        k = kern.to(dtype=torch.float32, device=device)
+        vec = k.flat_params().detach().requires_grad_()
+        K = k.with_flat_params(vec).gram(X)
+        call = lambda: torch.autograd.grad(K, vec, G, retain_graph=True)  # noqa: E731
+        dev_ms, launches, _ = profile_ms(call)
+        row = {"device_ms": dev_ms, "launches": launches, "enqueue_ms": enqueue_ms(call),
+               "call_ms": time_ms(call)}
+        out[name] = row
+        print(f"backward {name} f32 n={n}: device {dev_ms:.4f} ms in {launches:.0f} "
+              f"launches, enqueue {row['enqueue_ms']:.4f} ms, call {row['call_ms']:.4f} ms",
+              flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    if not torch.cuda.is_available():
+        print("gram_study: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(f"package: {gp.__file__}", flush=True)
+    print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    result = {"forward": forward(dev), "backward": backward(dev)}
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

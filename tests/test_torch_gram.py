@@ -102,19 +102,24 @@ def test_family_and_params_give_back_the_modules_profile(kern):
 
 
 @pytest.mark.parametrize("sym", [True, False])
-def test_autograd_function_gradient_is_the_plain_gradient(sym):
-    """On CPU tensors the autograd.Function's backward (the VJP of the plain
-    version) equals autograd straight through the plain version, in the
-    hyperparameters and in both inputs."""
+@pytest.mark.parametrize("wrt", ["all", "params", "inputs"])
+def test_autograd_function_gradient_is_the_plain_gradient(sym, wrt):
+    """On CPU tensors the autograd.Function's backward (`gram_vjp_plain`,
+    the closed-form VJP) equals autograd straight through the plain version,
+    in the hyperparameters and in both inputs, or in only some of them; X1
+    holds a duplicate point off the diagonal (r = 0 there)."""
     rng = np.random.RandomState(5)
-    X1 = torch.tensor(rng.randn(40, 3), requires_grad=True)
-    X2 = torch.tensor(rng.randn(23, 3), requires_grad=True)
+    X1np = rng.randn(40, 3)
+    X1np[17] = X1np[3]
+    X1 = torch.tensor(X1np, requires_grad=wrt != "params")
+    X2 = torch.tensor(rng.randn(23, 3), requires_grad=wrt != "params")
     W = torch.tensor(rng.randn(40, 40 if sym else 23))
     for fam in range(gram_op.PERIODIC + 1):
-        p = torch.tensor([0.1, -0.2, 0.3], dtype=torch.float64, requires_grad=True)
+        p = torch.tensor([0.1, -0.2, 0.3], dtype=torch.float64, requires_grad=wrt != "inputs")
         args = (p, X1) if sym else (p, X1, X2)
-        g_fn = torch.autograd.grad((W * gram_op.gram(fam, *args)).sum(), args)
-        g_plain = torch.autograd.grad((W * gram_op.gram_plain(fam, *args)).sum(), args)
+        wanted = [t for t in args if t.requires_grad]
+        g_fn = torch.autograd.grad((W * gram_op.gram(fam, *args)).sum(), wanted)
+        g_plain = torch.autograd.grad((W * gram_op.gram_plain(fam, *args)).sum(), wanted)
         for a, b in zip(g_fn, g_plain):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12, atol=1e-14)
 

@@ -49,10 +49,28 @@ Phases, each of which exits non-zero on the first failure:
      with its grid, the grid syncs it counted, the split of its time into
      correction, diagonal blocks and apply from its own time stamps, and
      the rate of its deep product beside `gemm_tile`'s
-     (perf/single_parts.py).
+     (perf/single_parts.py);
+ 12. the batched gram and VJP kernels against the vmapped plain versions:
+     C = 1, 3 and 128 chains, n = 200 and 1001, d = 5, every family iso
+     (inputs shared) and ARD (inputs per chain), symmetric and cross, f32
+     and f64, the VJP with dp alone and with dX, twice for identical bits
+     (and at C = 1 the unbatched launch's bits), then grids of 1 and 7
+     blocks;
+ 13. configuration #2's GPA target (perf/gpa_study.py: BernLik, Matern 3/2
+     ARD, n = 200, d = 5) in f32 on the card against f64 on the CPU and on
+     the card, vmapped over 128 chains against a loop, and predict_y;
+ 14. the split sampler at configuration #2's width (128 chains, 25 outer
+     iterations; then 1 chain), exactly 17 gram and 16 gram_vjp launches
+     an outer iteration; `mcmc(chains=8)` and `ess` on a GPE;
+ 15. examples/classification.py's model through the port: train accuracy
+     >= 0.75;
+ 16. perf/gpa_study.py cut to 40 outer iterations: one outer iteration's
+     launches, host enqueue, CUDA-event and device-busy time, ESS, R-hat.
+Phase 8 also times the batched kernels (C = 128, n = 200) for the table.
 The kernel launch counts are set to 0 before each main-path call and read
 after it: one evaluation launches the forward and the VJP kernel once for
-each stationary gram, prediction only the forward. The last three lines are the kernel table (JSON), the card, and
+each stationary gram (once for every chain of a vmapped batch), prediction
+only the forward. The last three lines are the kernel table (JSON), the card, and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -67,6 +85,7 @@ import numpy as np
 import torch
 
 import gaussianprocesses_jl_tpu_torch as gp
+from gaussianprocesses_jl_tpu_torch.inference.hmc import batched_value_and_grad
 from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels as chol_op
 from gaussianprocesses_jl_tpu_torch.ops import cuda, gram as gram_op
 from gaussianprocesses_jl_tpu_torch.ops.distance import sqdist
@@ -76,7 +95,7 @@ from gaussianprocesses_jl_tpu_torch.ops.linalg import (
     tri_syrk_lower,
 )
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
-from gaussianprocesses_jl_tpu_torch.perf import gram_study, single_parts
+from gaussianprocesses_jl_tpu_torch.perf import gpa_study, gram_study, single_parts
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
     HBM_BYTES_PER_S,
@@ -86,7 +105,8 @@ from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     profile_ms,
     time_ms,
 )
-from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
+from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
+from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
 
 N_HEAD, D = 3000, 10
 
@@ -109,21 +129,6 @@ def launches(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (gram_op.LAUNCHES["gram"], gram_op.LAUNCHES["gram_vjp"])
-
-
-def device_profile(fn, reps=5, top=10):
-    """`reps` calls of fn under torch.profiler: (device-busy ms per call, the
-    `top` device kernels and the `top` operators by self device time per
-    call, each as (name, ms, calls)). Busy time sums the kernels alone: an
-    operator's self device time is its kernels' time counted again."""
-    kernels, ops = device_ms_by_name(fn, reps=reps)
-
-    def ranked(rows):
-        rows = sorted(rows.items(), key=lambda kv: -kv[1][0])
-        return [(key, ms, int(calls)) for key, (ms, calls) in rows[:top]]
-
-    busy_ms = sum(ms for ms, _ in kernels.values())
-    return busy_ms, ranked(kernels), ranked(ops)
 
 
 def stationary_kernels():
@@ -287,6 +292,327 @@ def phase_walks(dev) -> None:
                       f"{verr:.3e} ({ratio:.3f} of tol) {'ok' if ok else 'FAIL'}")
                 if not ok:
                     fail(f"tile walk on {grid} blocks disagrees with the plain version: {name}")
+
+
+D_GPA = 5  # the GPA classification configuration's features
+
+
+def batched_kernels():
+    """Every family iso and (but Periodic) ARD, at d = 5."""
+    ll = np.array([0.3, -0.2, 0.1, 0.4, 0.0])
+    return [
+        ("SEIso", gp.SE(0.3, 0.1)), ("SEArd", gp.SE(ll, 0.1)),
+        ("Mat12Iso", gp.Matern(0.5, 0.4, -0.1)), ("Mat12Ard", gp.Matern(0.5, ll + 0.2, -0.1)),
+        ("Mat32Iso", gp.Matern(1.5, 0.3, 0.2)), ("Mat32Ard", gp.Matern(1.5, ll, 0.2)),
+        ("Mat52Iso", gp.Matern(2.5, 0.2, 0.0)), ("Mat52Ard", gp.Matern(2.5, ll, 0.0)),
+        ("RQIso", gp.RQ(0.2, 0.1, -0.3)), ("RQArd", gp.RQ(ll, 0.1, -0.3)),
+        ("Periodic", gp.Periodic(ll=0.1, lsigma=0.05, lp=0.5)),
+    ]
+
+
+def chain_operands(kern, C, X, X2, rng, dtype, dev):
+    """(p (C, 3), A, B) of C chains whose hyperparameters scatter 0.1 around
+    kern's: A and B shared (n, d) for an iso kernel, per chain (C, n, d) for
+    an ARD one, whose inputs scale by each chain's length scales; B None for
+    the symmetric gram."""
+    k0 = kern.to(dtype=dtype, device=dev)
+    thetas = k0.flat_params() + 0.1 * torch.as_tensor(rng.randn(C, k0.n_params), dtype=dtype,
+                                                      device=dev)
+    ks = [k0.with_flat_params(t) for t in thetas]
+    P = torch.stack([k._gram_params() for k in ks]).contiguous()
+    if not k0._ard:
+        return P, X, X2
+    A = torch.stack([k._scale(X) for k in ks]).contiguous()
+    B = None if X2 is None else torch.stack([k._scale(X2) for k in ks]).contiguous()
+    return P, A, B
+
+
+def batched_vjp_scales(family, P, A, B, G):
+    """`vjp_scales` of each chain, (C, ...)."""
+    dims = gram_op._dims(P, A, B, G)
+    return torch.func.vmap(lambda p, a, b, g: vjp_scales(family, p, a, b, g), in_dims=dims)(
+        P, A, B, G)
+
+
+def phase_batched_vs_plain(dev) -> dict:
+    """Phase 12: the batched kernels against the vmapped plain versions, C
+    in {1, 3, 128} chains, n in {200, 1001}, d = 5, every family iso (X
+    shared) and ARD (X per chain), symmetric and cross, f32 and f64. The
+    tolerances of phase 3, chain by chain: the forward within atol 1e-5
+    sigma_c^2 (f32) or 1e-12 sigma_c^2 (f64); the VJP, with dp alone and with
+    dX, each output within tol times its sum of magnitudes, launched twice
+    for identical bits. At C = 1 the batched launch gives the unbatched
+    launch's bits. Then a case on grids of 1 and 7 blocks. Returns the
+    largest f32 differences and the largest VJP ratio."""
+    rng = np.random.RandomState(12)
+    gen = torch.Generator(device=dev).manual_seed(12)  # cotangents, made on the card
+    worst = {"gram": 0.0, "gram_vjp": 0.0, "vjp_ratio": 0.0}
+    for n in (200, 1001):
+        Xnp, X2np = rng.randn(n, D_GPA), rng.randn(n // 2 + 7, D_GPA)
+        for C in (1, 3, 128):
+            line = {}
+            for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+                X = torch.as_tensor(Xnp, dtype=dtype, device=dev)
+                X2 = torch.as_tensor(X2np, dtype=dtype, device=dev)
+                for name, kern in batched_kernels():
+                    for sym in (True, False):
+                        P, A, B = chain_operands(kern, C, X, None if sym else X2, rng, dtype,
+                                                 dev)
+                        fam = kern._family
+                        sig2 = torch.exp(2 * P[:, 0])
+                        K = gram_op.launch_gram(fam, P, A, B)
+                        K0 = gram_op.gram_plain(fam, P, A, B)
+                        err_c = (K - K0).abs().flatten(1).max(1).values
+                        ok = bool(torch.isfinite(K).all()) and bool((err_c <= tol * sig2).all())
+                        if C == 1:
+                            one = gram_op.launch_gram(fam, P[0], A[0] if A.ndim == 3 else A,
+                                                      None if B is None else
+                                                      (B[0] if B.ndim == 3 else B))
+                            ok = ok and torch.equal(K[0], one)
+                        if not ok:
+                            fail(f"batched gram disagrees with its plain version: {name} n={n} "
+                                 f"C={C} sym={sym} {dtype}: {float(err_c.max()):.3e}")
+                        G = torch.randn((C, n, n if sym else X2.shape[0]), generator=gen,
+                                        dtype=dtype, device=dev)
+                        scales = batched_vjp_scales(fam, P, A, B, G)
+                        for needs in ((True, False, False), (True, True, not sym)):
+                            got = gram_op.launch_gram_vjp(fam, P, A, B, G, needs)
+                            again = gram_op.launch_gram_vjp(fam, P, A, B, G, needs)
+                            ref = gram_op.gram_vjp_plain(fam, P, A, B, G, needs)
+                            same = all(torch.equal(a, b) for a, b in zip(got, again)
+                                       if a is not None)
+                            verr, ratio = check_vjp(got, ref, scales, tol)
+                            if C == 1:
+                                one = gram_op.launch_gram_vjp(
+                                    fam, P[0], A[0] if A.ndim == 3 else A,
+                                    None if B is None else (B[0] if B.ndim == 3 else B), G[0],
+                                    needs)
+                                same = same and all(torch.equal(a[0], b) for a, b in
+                                                    zip(got, one) if a is not None)
+                            if not (same and ratio <= 1.0):
+                                fail(f"batched gram_vjp disagrees with its plain version or "
+                                     f"between runs: {name} n={n} C={C} sym={sym} {dtype} "
+                                     f"{needs}: ratio {ratio:.3f}, same bits {same}")
+                            worst["vjp_ratio"] = max(worst["vjp_ratio"], ratio)
+                            if dtype == torch.float32:
+                                worst["gram_vjp"] = max(worst["gram_vjp"], verr)
+                        if dtype == torch.float32:
+                            worst["gram"] = max(worst["gram"], float(err_c.max()))
+                        line[str(dtype)[6:]] = max(line.get(str(dtype)[6:], 0.0),
+                                                   float((err_c / sig2).max()))
+            print(f"  batched n={n:4d} C={C:3d}: 11 kernels x sym/cross x dp/dp+dX ok; largest "
+                  f"forward error / sigma^2: f32 {line['float32']:.3e}, f64 "
+                  f"{line['float64']:.3e}", flush=True)
+    # the walk over (chain, tile) pairs on small grids, 3 chains at n = 1001
+    X = torch.as_tensor(rng.randn(1001, D_GPA), dtype=torch.float32, device=dev)
+    for name, kern in (("SEIso", gp.SE(0.3, 0.1)),
+                       ("Mat32Ard", gp.Matern(1.5, np.linspace(-0.3, 0.3, D_GPA), 0.2))):
+        P, A, _ = chain_operands(kern, 3, X, None, rng, torch.float32, dev)
+        G = torch.randn((3, 1001, 1001), generator=gen, dtype=torch.float32, device=dev)
+        K0 = gram_op.gram_plain(kern._family, P, A)
+        ref = gram_op.gram_vjp_plain(kern._family, P, A, None, G)
+        scales = batched_vjp_scales(kern._family, P, A, None, G)
+        sig2 = torch.exp(2 * P[:, 0])[:, None, None]
+        for grid in (1, 7):
+            K = gram_op.launch_gram(kern._family, P, A, grid=grid)
+            err = float(((K - K0).abs() / sig2).max())
+            _, ratio = check_vjp(gram_op.launch_gram_vjp(kern._family, P, A, None, G, grid=grid),
+                                 ref, scales, 1e-5)
+            ok = err <= 1e-5 and ratio <= 1.0
+            print(f"  batched walk {name} C=3 n=1001 on {grid} blocks: max|K - plain|/sigma^2 "
+                  f"{err:.3e}, vjp {ratio:.3f} of tol {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"batched walk on {grid} blocks disagrees with the plain version: {name}")
+    return worst
+
+
+def phase_gpa_target(dev) -> tuple:
+    """Phase 13: configuration #2's GPA target (BernLik, Matern 3/2 ARD,
+    n = 200, d = 5, `perf/gpa_study.py`) at a chain's state (v standard
+    normal, the six kernel hyperparameters 0.5 standard normals):
+      * f32 on the card against f64 on the CPU: target rtol 1e-4, gradient
+        atol 2e-3 max|g|. The f32 model's nugget is 1e-4, the f64 model's
+        1e-6 (`gpa_nugget`); on the CPU, over four such states
+        (`perf/gpa_study.py --f32-gap`), that alone
+        moves the target by up to 2.9e-5 relative and the gradient by up to
+        2.9e-4 max|g|, where f32 rounding at one nugget moves them by 4e-8
+        and 7e-7. f64 on the card against it: target rtol 1e-9, gradient
+        rtol 1e-8 with atol 1e-10 max|g|;
+      * the vmapped value and gradient over 128 chains (one launch of each
+        gram kernel) against a loop over 4 of them, f32: target rtol 1e-5,
+        gradient atol 1e-4 max|g| (batched against single factorizations);
+      * predict_y at 500 new points: finite, probabilities in [0, 1].
+    Returns the launches of the three main-path calls, summed."""
+    rng = np.random.RandomState(13)
+    vec = np.concatenate([rng.randn(gpa_study.N), 0.5 * rng.randn(gpa_study.D_FEAT + 1)])
+
+    def make(dtype, device):
+        return gpa_study.config2_model(device, dtype=dtype).set_params(vec)
+
+    m32 = make(np.float32, dev)
+    (t, g), n_eval = launches(m32.target_and_dtarget)
+    print(f"GPA target f32 card {float(t):.6f}: {n_eval[0]} gram and {n_eval[1]} gram_vjp "
+          f"launches")
+    if n_eval != (1, 1) or not (bool(torch.isfinite(t)) and bool(torch.isfinite(g).all())):
+        fail("GPA target: non-finite, or not one launch of each gram kernel")
+    t_ref, g_ref = make(np.float64, "cpu").target_and_dtarget()
+    t64, g64 = make(np.float64, dev).target_and_dtarget()
+    gmax = float(g_ref.abs().max())
+    check_close("GPA f32 target vs f64 CPU", t.cpu(), t_ref, 1e-4)
+    check_close("GPA f32 gradient vs f64 CPU", g.cpu(), g_ref, 0.0, 2e-3 * gmax)
+    check_close("GPA f64 card target vs f64 CPU", t64.cpu(), t_ref, 1e-9)
+    check_close("GPA f64 card gradient vs f64 CPU", g64.cpu(), g_ref, 1e-8, 1e-10 * gmax)
+
+    logprob, x0, _, _ = m32.make_logprob()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    states = x0 + 0.3 * torch.randn((gpa_study.CHAINS, x0.numel()), generator=gen,
+                                    dtype=x0.dtype, device=dev)
+    (tb, gb), n_batch = launches(lambda: batched_value_and_grad(logprob)(states))
+    print(f"GPA target vmapped over {gpa_study.CHAINS} chains: {n_batch[0]} gram and "
+          f"{n_batch[1]} gram_vjp launches")
+    if n_batch != (1, 1):
+        fail("vmapped GPA target: not one launch of each gram kernel for every chain")
+    for c in range(4):
+        gc, tc = torch.func.grad_and_value(logprob)(states[c])
+        check_close(f"vmapped target, chain {c}, vs its own call", tb[c].cpu(), tc.cpu(), 1e-5)
+        check_close(f"vmapped gradient, chain {c}, vs its own call", gb[c].cpu(), gc.cpu(), 0.0,
+                    1e-4 * float(gc.abs().max()))
+
+    Xs = np.random.RandomState(7).randn(500, gpa_study.D_FEAT).astype(np.float32)
+    (prob, var), n_pred = launches(lambda: m32.predict_y(Xs))
+    print(f"GPA predict_y at 500 points: {n_pred[0]} gram and {n_pred[1]} gram_vjp launches, "
+          f"probabilities in [{float(prob.min()):.4f}, {float(prob.max()):.4f}]")
+    if not (bool(torch.isfinite(prob).all()) and bool(torch.isfinite(var).all())
+            and bool(((prob >= 0) & (prob <= 1)).all()) and n_pred[1] == 0):
+        fail("GPA predict_y: non-finite, outside [0, 1], or a VJP launch")
+    return tuple(a + b + c for a, b, c in zip(n_eval, n_batch, n_pred))
+
+
+N_SAMPLER_ITERS = 25  # phase 14's outer iterations at 128 chains
+
+
+def phase_samplers(dev) -> dict:
+    """Phase 14: the samplers at configuration #2's full width. The split
+    sampler (`a_iters=16`, `eps_a=0.06`, `eps_b=0.08`, L in 5..15, no
+    adaptation) for N_SAMPLER_ITERS outer iterations over 128 chains, then 2
+    over one chain: every draw finite, both mean accept rates (128 chains)
+    in (0.2, 1], and exactly 17 gram and 16 gram_vjp launches an outer
+    iteration at either chain count (1 for the cached factor, 1 + Lmax for
+    the kernel block's update). Then 5 iterations of `mcmc(sampler="joint",
+    chains=8)` (1 + 5 Lmax launches of each) and `ess` on a GPE with Normal
+    priors (n = 200, d = 5, chains=8, forward launches only). Returns
+    {"split": ..., "joint": ..., "ess": ...}, each with its launches."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    m = gpa_study.config2_model(dev)
+    out = {}
+    for C, iters in ((gpa_study.CHAINS, N_SAMPLER_ITERS), (1, 2)):
+        *target, a, b = gpa_study.chain_starts(m, C, gen)
+        t0 = time.perf_counter()
+        res, n = launches(lambda: gpa_study.outer_iterations(target, a, b, gen, iters))
+        secs = time.perf_counter() - t0
+        acc = (float(res.accept_rate_a.mean()), float(res.accept_rate_b.mean()))
+        finite = bool(torch.isfinite(res.samples).all())
+        print(f"split sampler, {C} chains, {iters} outer iterations: {secs:.3f} s "
+              f"({1e3 * secs / iters:.1f} ms an iteration), {n[0]} gram and {n[1]} gram_vjp "
+              f"launches, accept a {acc[0]:.3f}, b {acc[1]:.3f}, draws "
+              f"{tuple(res.samples.shape)} finite {finite}", flush=True)
+        if n != (17 * iters, 16 * iters):
+            fail(f"split sampler at {C} chains: {n} launches, expected "
+                 f"{(17 * iters, 16 * iters)}")
+        if not finite or (C > 1 and not all(0.2 < r <= 1.0 for r in acc)):
+            fail(f"split sampler at {C} chains: non-finite draws or accept rates {acc}")
+        out["split" if C > 1 else "split_one_chain"] = {
+            "chains": C, "iters": iters, "s": secs, "launches": n, "accept": acc}
+
+    mj = gpa_study.config2_model(dev)
+    t0 = time.perf_counter()
+    res, n = launches(lambda: gp.mcmc(mj, gen, n_iter=5, chains=8, eps=0.05, verbose=False))
+    secs = time.perf_counter() - t0
+    print(f"joint HMC, 8 chains, 5 iterations: {secs:.3f} s, {n[0]} gram and {n[1]} gram_vjp "
+          f"launches, accept {res.accept_rate.mean().item():.3f}", flush=True)
+    if n != (1 + 5 * 15, 1 + 5 * 15) or res.samples.shape != (8, 5, mj.num_params()) or \
+            not bool(torch.isfinite(res.samples).all()):
+        fail("joint HMC: wrong launches, shape or non-finite draws")
+    out["joint"] = {"chains": 8, "iters": 5, "s": secs, "launches": n}
+
+    rng = np.random.RandomState(15)
+    Xg = rng.randn(gpa_study.N, gpa_study.D_FEAT)
+    yg = np.sin(Xg[:, 0]) + 0.1 * rng.randn(gpa_study.N)
+    mg = gp.GPE(Xg.astype(np.float32), yg.astype(np.float32), gp.MeanZero(), gp.SE(0.0, 0.0),
+                lognoise=-1.0, device=dev)
+    mg.set_priors(noise=[Normal(-1.0, 1.0)], kern=[Normal(0.0, 1.0)] * 2)
+    t0 = time.perf_counter()
+    res, n = launches(lambda: gp.ess(mg, gen, n_iter=20, chains=8, verbose=False))
+    secs = time.perf_counter() - t0
+    props = float(res.mean_proposals.mean())
+    print(f"ess on a GPE, 8 chains, 20 iterations: {secs:.3f} s, {n[0]} gram and {n[1]} "
+          f"gram_vjp launches, {props:.2f} proposals an iteration", flush=True)
+    if n[0] < 21 or n[1] != 0 or res.samples.shape != (8, 20, 3) or \
+            not bool(torch.isfinite(res.samples).all()):
+        fail("ess: wrong launches, shape or non-finite draws")
+    out["ess"] = {"chains": 8, "iters": 20, "s": secs, "launches": n}
+    return out
+
+
+# examples/classification.py runs 250 outer iterations (its n_iter // 4);
+# cut to 100 to keep the script inside its time (PERF.md §4)
+N_CLASS_ITERS = 100
+
+
+def phase_classification(dev) -> dict:
+    """Phase 15: examples/classification.py's model and data through the
+    port on the card (n = 80, d = 5, Matern 3/2 ARD, BernLik, Normal(0, 2)
+    priors, f32): one chain of the split sampler, `a_iters=8`,
+    `eps_a=eps_b=0.06`, N_CLASS_ITERS outer iterations; the model takes the
+    final state, and its train accuracy must reach 0.75, the anchor of
+    tests/test_notebook_parity.py."""
+    rng = np.random.RandomState(0)
+    n, d = 80, 5
+    X = rng.randn(n, d)
+    logit = 1.5 * X[:, 0] - 1.0 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3]
+    y = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(float)
+    m = gp.GPA(X.astype(np.float32), y.astype(np.float32), gp.MeanZero(),
+               gp.Matern(1.5, np.zeros(d), 0.0), gp.BernLik(), device=dev)
+    m.set_priors(kern=[Normal(0.0, 2.0)] * (d + 1))
+    t0 = time.perf_counter()
+    res, n_launch = launches(lambda: gp.mcmc(
+        m, torch.Generator(device=dev).manual_seed(0), n_iter=N_CLASS_ITERS, a_iters=8,
+        eps_a=0.06, eps_b=0.06, sampler="split", burn=N_CLASS_ITERS * 8 // 5, verbose=False))
+    secs = time.perf_counter() - t0
+    prob, _ = m.predict_y(X.astype(np.float32))
+    acc = float(np.mean((prob.cpu().numpy() > 0.5) == (y > 0.5)))
+    print(f"classification anchor: {N_CLASS_ITERS} outer iterations in {secs:.3f} s, "
+          f"{n_launch[0]} gram and {n_launch[1]} gram_vjp launches, accept "
+          f"{[round(r, 3) for r in res.accept_rate.tolist()]}, train accuracy {acc:.3f} "
+          f"(anchor 0.75)", flush=True)
+    if not acc >= 0.75:
+        fail(f"classification anchor: train accuracy {acc:.3f} < 0.75")
+    return {"s": secs, "accuracy": acc, "launches": n_launch}
+
+
+# phase 16: gpa_study's run, cut from the JAX bench's 400 outer iterations
+# (100 dropped) to keep the script inside its time; the full run is
+# `python -m gaussianprocesses_jl_tpu_torch.perf.gpa_study` alone (PERF.md)
+N_STUDY_ITERS = 40
+
+
+def phase_gpa_study(dev) -> dict:
+    """Phase 16: perf/gpa_study.py at configuration #2: one outer iteration
+    at 128 chains (launches, host enqueue, CUDA-event and device-busy time,
+    device time by kernel and operator) and at 1 (launches, enqueue), then
+    the timed run of N_STUDY_ITERS outer iterations (a quarter dropped, as
+    the JAX bench drops 100 of 400) with ESS and R-hat. The launch counts
+    must be 17 and 16 again, and every draw finite."""
+    it = {"chains": gpa_study.one_iteration(dev, gpa_study.CHAINS),
+          "one_chain": gpa_study.one_iteration(dev, 1, profile=False)}
+    for row in it.values():
+        if (row["gram_launches"], row["gram_vjp_launches"]) != (17, 16):
+            fail(f"gpa_study: {row['chains']} chains launched {row['gram_launches']} gram and "
+                 f"{row['gram_vjp_launches']} gram_vjp kernels an outer iteration")
+    run = gpa_study.run(dev, n_iter=N_STUDY_ITERS, warmup=N_STUDY_ITERS // 4)
+    if not run["draws_finite"]:
+        fail("gpa_study: non-finite draws")
+    return {"iteration": it, "run": run}
 
 
 def phase_vjp_times(dev) -> dict:
@@ -759,6 +1085,9 @@ def main() -> int:
     gram_rows = gram_study.forward(dev)
     vjp_rows = phase_vjp_times(dev)
     backward_rows = gram_study.backward(dev)
+    # before phase 16's profile of a whole outer iteration: torch.profiler
+    # saw no kernel in a later profile of the same process (PERF.md §6)
+    batched_rows = gram_study.batched(dev)
 
     mh = headline(np.float32, None)
     total = time_ms(mh.target_and_dtarget)
@@ -796,6 +1125,41 @@ def main() -> int:
     print(f"phase 11: study timings, card {card}")
     study_rows = phase_study_times(dev, card)
 
+    # 12. the batched kernels against their plain versions
+    t0 = time.perf_counter()
+    print("phase 12: batched gram and gram_vjp kernels vs vmapped plain versions")
+    batched_worst = phase_batched_vs_plain(dev)
+    print(f"phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # 13. the GPA target, batched over chains
+    t0 = time.perf_counter()
+    print("phase 13: configuration #2's GPA target on the card")
+    n_gpa = phase_gpa_target(dev)
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s")
+
+    # 14. the samplers at full width
+    t0 = time.perf_counter()
+    print("phase 14: the samplers at configuration #2's width")
+    samplers = phase_samplers(dev)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+    # 15. the classification anchor
+    t0 = time.perf_counter()
+    print("phase 15: the classification anchor")
+    anchor = phase_classification(dev)
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    sampler_launches = [n_gpa, *(row["launches"] for row in samplers.values()),
+                        anchor["launches"]]
+    main_launches = [sum(col) for col in zip(main_launches, *sampler_launches)]
+
+    # 16. the GPA study, and the batched kernels' times
+    t0 = time.perf_counter()
+    print(f"phase 16: perf/gpa_study.py at configuration #2, card {card}")
+    gpa = phase_gpa_study(dev)
+    print("gpa_study: " + json.dumps(gpa))
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+    split_launches = samplers["split"]["launches"]
     fwd, vjp = gram_rows[N_HEAD], vjp_rows["SE dp"]
     table = {"kernels": [{
         "name": "gram",
@@ -813,6 +1177,8 @@ def main() -> int:
         "enqueue_ms": fwd["enqueue_ms"],
         "cdist_ms": fwd["cdist_ms"],
         "by_n": gram_rows,
+        "batched": {**batched_rows["forward"], "max_abs_err": batched_worst["gram"],
+                    "launches": split_launches[0], "launches_per_outer_iteration": 17},
     }, {
         "name": "gram_vjp",
         "route": "cuda",
@@ -830,6 +1196,9 @@ def main() -> int:
         "enqueue_ms": vjp["enqueue_ms"],
         "by_case": vjp_rows,
         "backward_by_gram": backward_rows,
+        "batched": {**batched_rows["gram_vjp"], "max_abs_err": batched_worst["gram_vjp"],
+                    "max_err_over_tol": batched_worst["vjp_ratio"],
+                    "launches": split_launches[1], "launches_per_outer_iteration": 16},
     }]}
     study_src = {
         "se_gram_study": ("csrc/gram.cu", "perf/pallas_cholesky_study.py:102"),

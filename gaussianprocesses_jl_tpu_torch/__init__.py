@@ -2,10 +2,13 @@
 and an NVIDIA H100.
 
 The port of `gaussianprocesses_jl_tpu` (JAX on a TPU), held against it by
-the tests. This slice carries the exact-GP path: kernels and means with the
-flat-parameter protocol, the GPE log target and its gradient, prediction and
-the L-BFGS-B optimizer. Stationary grams run on a hand-written CUDA kernel
-(`csrc/gram.cu`). Models run on the CUDA device unless built with
+the tests. It carries the exact-GP path (kernels and means with the
+flat-parameter protocol, the GPE log target and its gradient, prediction,
+the L-BFGS-B optimizer) and GPA classification: the likelihoods, the
+whitened-latent GPA model, the HMC, split-HMC and elliptical-slice samplers
+over a batch of chains, and the multi-chain ESS and R-hat. Stationary grams
+run on hand-written CUDA kernels (`csrc/gram.cu`), one launch for every
+chain of a batch. Models run on the CUDA device unless built with
 `device="cpu"`. The Cholesky study (`perf/cholesky_study.py`) drives the
 panel, single-launch and launch-probe kernels of `csrc/cholesky.cu`; the
 package's own factorization does not route through them.
@@ -56,12 +59,25 @@ from .ops.means import (
     SumMean,
     ProdMean,
 )
+from .ops.likelihoods import (
+    Likelihood,
+    GaussLik,
+    BernLik,
+    PoisLik,
+    StuTLik,
+    ExpLik,
+    BinLik,
+)
 from .models.covariance import FullCovariance
 from .models.gpe import GPE, GP, GPEParams, noise_variance
+from .models.gpa import GPA, GPAParams
+from .inference.mcmc import mcmc, ess
+from .inference.split import split_hmc, SplitHMCResult
 from .inference.optimize import optimize
+from .inference.diagnostics import effective_sample_size, split_rhat
 from .utils import priors
 from .utils.params import Param
 from .utils.modules import Module
-from .convert import load_flat
+from .convert import load_chains, load_flat
 
 __version__ = "0.1.0"

@@ -45,6 +45,16 @@
 //   give each resident block one or two, so a block's start
 //   (hyperparameters, staging) is not hidden behind another tile's stores.
 //
+// A batch of chains (one gram per chain, as a sampler's chains need them):
+// both kernels take a chain count C and, for X1, X2 and p, a stride between
+// chains in elements, 0 where the chains share the operand (an iso kernel's
+// inputs; ARD inputs are scaled per chain). The walk runs over (chain, tile)
+// pairs u = c ntiles + t, so one launch serves every chain: at n = 200 one
+// chain has 10 tiles, 128 chains 1280, enough to fill the card. Outputs,
+// cotangents and gradients are (C, ...) contiguous. C = 1 launches the
+// kernels' BATCHED = false instantiations, compiled without the chain
+// arithmetic: a single gram runs, and sums, as it did before chains.
+//
 // VJP design (one pass over G, nothing n x n written):
 // - The same tile walk: lower-triangle tiles for a symmetric gram, where an
 //   off-diagonal tile reads G's tile and the transposed tile (staged in shared
@@ -58,11 +68,14 @@
 //   x2_j sum_i W_ij - sum_i W_ij x1_i: the gradient of X1 (rows, and on a
 //   symmetric gram columns too) and of X2 (columns).
 // - Deterministic sums, no atomics: each block adds its hyperparameter terms
-//   in registers, reduces them in a fixed order and writes one partial; each
-//   tile writes its row and column partials. `gram_vjp_reduce` adds the
-//   partials in block and tile order (a gradient element's tiles as four
-//   interleaved sums, so that four loads are in flight), so a run gives the
-//   same bits every time on the same card and grid.
+//   in registers, reduces them in a fixed order and writes one partial for
+//   each chain it walked (a block's tiles are in increasing u, so it meets
+//   each chain in one run); each tile writes its row and column partials.
+//   `gram_vjp_reduce` (one gram) and `gram_vjp_reduce_chains` (a batch) add
+//   a chain's partials in block order, over the blocks whose walk met that
+//   chain (`walked`), and its tiles' partials in tile order (a gradient element's tiles as four interleaved sums, so that four
+//   loads are in flight), so a run gives the same bits every time on the
+//   same card and grid.
 // - What holds the input gradient back (measured on an H100: 0.048 ms at
 //   n = 3000, d = 10, against 0.023 ms for the hyperparameters alone): the
 //   row and column products read about one shared-memory word per FMA, and
@@ -318,11 +331,12 @@ __host__ __device__ constexpr bool vec_rows(int n2) {
   return n2 % (16 / (int)sizeof(T)) == 0;
 }
 
-template <typename T, int F>
+template <typename T, int F, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 gram_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
             const T* __restrict__ p, T* __restrict__ out,
-            int n1, int n2, int d, int sym, long long ntiles, int nb2) {
+            int n1, int n2, int d, int sym, long long ntiles, int nb2,
+            int chains, long long sx1, long long sx2, long long sp) {
   constexpr int DK = Chunk<T>::DK;
   // the feature chunks, then (aliased) the transposed tile
   __shared__ __align__(16) T smem[TILE * (TILE + 1)];
@@ -331,15 +345,30 @@ gram_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
   T(*s2)[TILE] = reinterpret_cast<T(*)[TILE]>(smem + DK * TILE);
   T(*sT)[TILE + 1] = reinterpret_cast<T(*)[TILE + 1]>(smem);
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const Hyper<T> h = load_hyper(p);
+  // a chain's gram starts 16-byte aligned when its rows are
   const bool vec = vec_rows<T>(n2) && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long total = BATCHED ? ntiles * chains : ntiles;
+  long long cur = 0;
+  Hyper<T> h = load_hyper(p);
 
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+  for (long long u = blockIdx.x; u < total; u += gridDim.x) {
+    long long c = 0, t = u;
+    if (BATCHED) {
+      c = u / ntiles;
+      t = u - c * ntiles;
+      if (c != cur) {
+        h = load_hyper(p + c * sp);
+        cur = c;
+      }
+    }
+    const T* __restrict__ A = BATCHED ? X1 + c * sx1 : X1;
+    const T* __restrict__ B = BATCHED ? X2 + c * sx2 : X2;
+    T* __restrict__ o = BATCHED ? out + c * (int64_t)n1 * n2 : out;
     int bi, bj;
     tile_of(t, sym, nb2, bi, bj);
     const int row0 = bi * TILE, col0 = bj * TILE;
     T v[RM][RN];
-    tile_r2(v, s1, s2, X1, X2, row0, col0, n1, n2, d);
+    tile_r2(v, s1, s2, A, B, row0, col0, n1, n2, d);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int gr = row0 + ty + TY * i;
@@ -349,7 +378,7 @@ gram_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
         // profile(0) = exp(2 lsigma) in every family, at full precision
         v[i][j] = (sym && gr == gc) ? h.sig2 : profile<T, F>(v[i][j], h);
       }
-      if (gr < n1) store4(out + (int64_t)gr * n2 + col0 + RN * tx, v[i], n2 - col0 - RN * tx, vec);
+      if (gr < n1) store4(o + (int64_t)gr * n2 + col0 + RN * tx, v[i], n2 - col0 - RN * tx, vec);
     }
     if (sym && bi != bj) {
       // the mirror tile: out[col0 + c, row0 + r] = v(r, c)
@@ -360,12 +389,12 @@ gram_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
       __syncthreads();
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
-        const int c = ty + TY * i;
+        const int cc = ty + TY * i;
         T w[RN];
 #pragma unroll
-        for (int j = 0; j < RN; ++j) w[j] = sT[c][RN * tx + j];
-        // col0 + c < n: the tile column lies left of this tile row's start
-        store4(out + (int64_t)(col0 + c) * n2 + row0 + RN * tx, w, n2 - row0 - RN * tx, vec);
+        for (int j = 0; j < RN; ++j) w[j] = sT[cc][RN * tx + j];
+        // col0 + cc < n: the tile column lies left of this tile row's start
+        store4(o + (int64_t)(col0 + cc) * n2 + row0 + RN * tx, w, n2 - row0 - RN * tx, vec);
       }
     }
     __syncthreads();  // the next tile's chunks overwrite the buffer
@@ -379,34 +408,76 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Partials: part_dp[block][3] (the dK/dlsigma column already 2K); for each
-// tile t, part_rows[t][k][r] and part_cols[t][k][c] over its 64 rows and
-// columns and d features, where needed.
-template <typename T, int F>
+// The block's hyperparameter terms for one chain, reduced in a fixed order
+// (warps by shuffles, then warp 0..7), into part_dp[chain][block][3] (the
+// dK/dlsigma column already 2K); ends with the block synchronised.
+template <typename T>
+__device__ __forceinline__ void flush_dp(T dp0, T dp1, T dp2, T (*red)[3],
+                                         T* __restrict__ part_dp, long long chain) {
+  const int tid = threadIdx.x;
+  const T mine[3] = {T(2) * dp0, dp1, dp2};
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+    const T v = warp_sum(mine[m]);
+    if (tid % 32 == 0) red[tid / 32][m] = v;
+  }
+  __syncthreads();
+  if (tid < 3) {
+    T a = T(0);
+    for (int w = 0; w < THREADS / 32; ++w) a += red[w][tid];
+    part_dp[(chain * gridDim.x + blockIdx.x) * 3 + tid] = a;
+  }
+  __syncthreads();  // red is rewritten at the next chain
+}
+
+// Partials: part_dp[chain][block][3] for each chain the block walked (the
+// dK/dlsigma column already 2K); for each (chain, tile) pair u,
+// part_rows[u][k][r] and part_cols[u][k][c] over its 64 rows and columns and
+// d features, where needed.
+template <typename T, int F, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 gram_vjp_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
                 const T* __restrict__ p, const T* __restrict__ G,
                 T* __restrict__ part_dp, T* __restrict__ part_rows, T* __restrict__ part_cols,
                 int n1, int n2, int d, int sym, long long ntiles, int nb2,
-                int need_dp, int need_rows, int need_cols) {
+                int need_dp, int need_rows, int need_cols,
+                int chains, long long sx1, long long sx2, long long sp) {
   constexpr int DK = Chunk<T>::DK;
   __shared__ __align__(16) T s1[DK][TILE];
   __shared__ __align__(16) T s2[DK][TILE];
   __shared__ T sW[TILE][TILE + 1];
   __shared__ T red[THREADS / 32][3];
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const Hyper<T> h = load_hyper(p);
   const bool vec = vec_rows<T>(n2) && reinterpret_cast<uintptr_t>(G) % 16 == 0;
   const bool need_dx = need_rows || need_cols;
+  const long long total = BATCHED ? ntiles * chains : ntiles;
+  // the chain of the block's first pair: blockIdx.x < total, so every block
+  // walks at least one pair and flushes at least one partial
+  long long cur = BATCHED ? blockIdx.x / ntiles : 0;
+  Hyper<T> h = load_hyper(p + cur * sp);
   T dp0 = T(0), dp1 = T(0), dp2 = T(0);
 
-  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+  for (long long u = blockIdx.x; u < total; u += gridDim.x) {
+    long long c = 0, t = u;
+    if (BATCHED) {
+      c = u / ntiles;
+      t = u - c * ntiles;
+      if (c != cur) {
+        if (need_dp) flush_dp(dp0, dp1, dp2, red, part_dp, cur);
+        h = load_hyper(p + c * sp);
+        cur = c;
+        dp0 = dp1 = dp2 = T(0);
+      }
+    }
+    const T* __restrict__ A = BATCHED ? X1 + c * sx1 : X1;
+    const T* __restrict__ B = BATCHED ? X2 + c * sx2 : X2;
+    const T* __restrict__ Gc = BATCHED ? G + c * (int64_t)n1 * n2 : G;
     int bi, bj;
     tile_of(t, sym, nb2, bi, bj);
     const int row0 = bi * TILE, col0 = bj * TILE;
     const bool mirror = sym && bi != bj;
     T r2[RM][RN];
-    tile_r2(r2, s1, s2, X1, X2, row0, col0, n1, n2, d);
+    tile_r2(r2, s1, s2, A, B, row0, col0, n1, n2, d);
 
     // S = G on this tile, plus the transposed tile of G where it mirrors
     T S[RM][RN];
@@ -414,17 +485,17 @@ gram_vjp_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
     for (int i = 0; i < RM; ++i) {
       const int gr = row0 + ty + TY * i;
       const int left = gr < n1 ? n2 - col0 - RN * tx : 0;
-      load4(S[i], G + (int64_t)gr * n2 + col0 + RN * tx, left, vec);
+      load4(S[i], Gc + (int64_t)gr * n2 + col0 + RN * tx, left, vec);
     }
     if (mirror) {
       // sW[r][c] = G[col0 + c, row0 + r]
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
-        const int c = ty + TY * i;
+        const int cc = ty + TY * i;
         T g[RN];
-        load4(g, G + (int64_t)(col0 + c) * n2 + row0 + RN * tx, n2 - row0 - RN * tx, vec);
+        load4(g, Gc + (int64_t)(col0 + cc) * n2 + row0 + RN * tx, n2 - row0 - RN * tx, vec);
 #pragma unroll
-        for (int j = 0; j < RN; ++j) sW[RN * tx + j][c] = g[j];
+        for (int j = 0; j < RN; ++j) sW[RN * tx + j][cc] = g[j];
       }
       __syncthreads();
 #pragma unroll
@@ -461,8 +532,8 @@ gram_vjp_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
       const int kc = min(DK, d - k0);
       if (d > DK) {  // the last chunk staged by tile_r2 is the only one held
         __syncthreads();
-        stage(s1, X1, row0, n1, d, k0, kc);
-        stage(s2, X2, col0, n2, d, k0, kc);
+        stage(s1, A, row0, n1, d, k0, kc);
+        stage(s2, B, col0, n2, d, k0, kc);
         __syncthreads();
       }
       if (need_rows) {
@@ -486,7 +557,7 @@ gram_vjp_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
           for (int f = 0; f < KPT; ++f) {
             const int k = kq + 8 * f, r = q + 32 * h;
             if (k < kc)
-              part_rows[((int64_t)t * d + k0 + k) * TILE + r] = s1[k][r] * sum[h] - a[h][f];
+              part_rows[((int64_t)u * d + k0 + k) * TILE + r] = s1[k][r] * sum[h] - a[h][f];
           }
       }
       if (need_cols) {
@@ -510,27 +581,13 @@ gram_vjp_kernel(const T* __restrict__ X1, const T* __restrict__ X2,
           for (int f = 0; f < KPT; ++f) {
             const int k = kq + 8 * f, c = q + 32 * h;
             if (k < kc)
-              part_cols[((int64_t)t * d + k0 + k) * TILE + c] = s2[k][c] * sum[h] - a[h][f];
+              part_cols[((int64_t)u * d + k0 + k) * TILE + c] = s2[k][c] * sum[h] - a[h][f];
           }
       }
     }
     __syncthreads();  // the next tile restages s1, s2 and rewrites sW
   }
-
-  if (!need_dp) return;
-  // the block's terms, in a fixed order: warps by shuffles, then warp 0..7
-  const T mine[3] = {T(2) * dp0, dp1, dp2};
-#pragma unroll
-  for (int m = 0; m < 3; ++m) {
-    const T v = warp_sum(mine[m]);
-    if (tid % 32 == 0) red[tid / 32][m] = v;
-  }
-  __syncthreads();
-  if (tid < 3) {
-    T a = T(0);
-    for (int w = 0; w < THREADS / 32; ++w) a += red[w][tid];
-    part_dp[blockIdx.x * 3 + tid] = a;
-  }
+  if (need_dp) flush_dp(dp0, dp1, dp2, red, part_dp, cur);
 }
 
 // term(0) + ... + term(n - 1) as four interleaved sums added in a fixed
@@ -547,6 +604,14 @@ __device__ __forceinline__ T sum4(int n, Term term) {
   }
   for (; j < n; ++j) a0 += term(j);
   return (a0 + a1) + (a2 + a3);
+}
+
+// Whether block b of a walk over `grid` blocks met chain c, whose pairs are
+// u = c ntiles .. (c + 1) ntiles - 1: block b takes u = b, b + grid, ...
+__device__ __forceinline__ bool walked(int b, long long c, long long ntiles, int grid) {
+  long long r = ((long long)b - c * ntiles) % grid;
+  if (r < 0) r += grid;
+  return r < ntiles;
 }
 
 // Adds the partials in block and tile order: dp from `nparts` block
@@ -606,6 +671,71 @@ gram_vjp_reduce(const T* __restrict__ part_dp, int nparts, const T* __restrict__
   }
 }
 
+// gram_vjp_reduce over a batch of chains: each chain's dp from the partials
+// of the `nparts` blocks that walked it (block c of this grid for chain c,
+// and so on), dX1 and dX2 element by element. A single gram keeps the
+// reduction above: written over chains, it ran twice as slow at C = 1 on an
+// H100 (0.0157 against 0.0075 ms at n = 3000, d = 10, with dX).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+gram_vjp_reduce_chains(const T* __restrict__ part_dp, int nparts, const T* __restrict__ part_rows,
+                const T* __restrict__ part_cols, T* __restrict__ dp, T* __restrict__ dX1,
+                T* __restrict__ dX2, int n1, int n2, int d, int sym, int nb1, int nb2,
+                int need_dp, int need_dx1, int need_dx2, int chains, long long ntiles) {
+  __shared__ T red[THREADS];
+  const int tid = threadIdx.x;
+  if (need_dp) {
+    for (int c = blockIdx.x; c < chains; c += gridDim.x) {
+      for (int m = 0; m < 3; ++m) {
+        T a = T(0);
+        for (int b = tid; b < nparts; b += THREADS)
+          if (walked(b, c, ntiles, nparts)) a += part_dp[((long long)c * nparts + b) * 3 + m];
+        red[tid] = a;
+        __syncthreads();
+        for (int s = THREADS / 2; s > 0; s >>= 1) {
+          if (tid < s) red[tid] += red[tid + s];
+          __syncthreads();
+        }
+        if (tid == 0) dp[(long long)c * 3 + m] = red[0];
+        __syncthreads();
+      }
+    }
+  }
+  const int64_t e1 = need_dx1 ? (int64_t)n1 * d : 0;
+  const int64_t e2 = need_dx2 ? (int64_t)n2 * d : 0;
+  for (int64_t e = (int64_t)blockIdx.x * THREADS + tid; e < (e1 + e2) * chains;
+       e += (int64_t)gridDim.x * THREADS) {
+    const int64_t c = e / (e1 + e2), ec = e - c * (e1 + e2);
+    const long long u0 = c * ntiles;  // the chain's first pair
+    if (ec < e1) {
+      // feature-major, so neighbouring threads read neighbouring rows
+      const int k = (int)(ec / n1), i = (int)(ec % n1);
+      const int b = i / TILE, r = i % TILE;
+      T a;
+      if (sym) {
+        const long long base = u0 + (long long)b * (b + 1) / 2;
+        a = sum4<T>(b + 1, [&](int bj) { return part_rows[((base + bj) * d + k) * TILE + r]; }) +
+            sum4<T>(nb1 - b, [&](int j) {
+              const long long bi = b + j;
+              return part_cols[((u0 + bi * (bi + 1) / 2 + b) * d + k) * TILE + r];
+            });
+      } else {
+        a = sum4<T>(nb2, [&](int bj) {
+          return part_rows[((u0 + (long long)b * nb2 + bj) * d + k) * TILE + r];
+        });
+      }
+      dX1[c * e1 + (int64_t)i * d + k] = a;
+    } else {
+      const int64_t e2i = ec - e1;
+      const int k = (int)(e2i / n2), j = (int)(e2i % n2);
+      const int b = j / TILE, cc = j % TILE;
+      dX2[c * e2 + (int64_t)j * d + k] = sum4<T>(nb1, [&](int bi) {
+        return part_cols[((u0 + (long long)bi * nb2 + b) * d + k) * TILE + cc];
+      });
+    }
+  }
+}
+
 // blocks of `kernel` that fit on the current device at once, found once a
 // device
 template <typename Kernel>
@@ -635,74 +765,110 @@ int walk_grid(int want, int most, long long ntiles) {
   return (int)(g < ntiles ? g : ntiles);
 }
 
-template <typename T, int F>
+// A batch of `chains` grams: X1, X2 and p of chain c start at c sx1, c sx2
+// and c sp elements (a stride of 0 shares the operand); out, G and the
+// gradients are (chains, ...) contiguous.
+struct Batch {
+  int chains;
+  long long sx1, sx2, sp;
+};
+
+template <typename T, int F, bool BATCHED>
 int launch_gram(const T* X1, const T* X2, const T* p, T* out, int n1, int n2, int d, int sym,
-                int want, cudaStream_t stream) {
+                Batch bt, int want, cudaStream_t stream) {
   static int cache[16] = {0};
-  const int most = resident_blocks(gram_kernel<T, F>, cache);
+  const int most = resident_blocks(gram_kernel<T, F, BATCHED>, cache);
   if (most <= 0) return (int)cudaErrorInvalidConfiguration;
   const long long ntiles = tile_count(n1, n2, sym);
-  const int grid = walk_grid(want, most, ntiles);
-  gram_kernel<T, F><<<grid, THREADS, 0, stream>>>(X1, X2, p, out, n1, n2, d, sym, ntiles,
-                                                  (n2 + TILE - 1) / TILE);
+  const int grid = walk_grid(want, most, ntiles * bt.chains);
+  gram_kernel<T, F, BATCHED><<<grid, THREADS, 0, stream>>>(
+      X1, X2, p, out, n1, n2, d, sym, ntiles, (n2 + TILE - 1) / TILE, bt.chains, bt.sx1,
+      bt.sx2, bt.sp);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int F>
+int launch_gram(const T* X1, const T* X2, const T* p, T* out, int n1, int n2, int d, int sym,
+                Batch bt, int want, cudaStream_t stream) {
+  return bt.chains == 1
+             ? launch_gram<T, F, false>(X1, X2, p, out, n1, n2, d, sym, bt, want, stream)
+             : launch_gram<T, F, true>(X1, X2, p, out, n1, n2, d, sym, bt, want, stream);
 }
 
 template <typename T>
 int gram_any(const T* X1, const T* X2, const T* p, T* out, int n1, int n2, int d, int family,
-             int sym, int g, cudaStream_t s) {
+             int sym, Batch bt, int g, cudaStream_t s) {
   switch (family) {
-    case SE: return launch_gram<T, SE>(X1, X2, p, out, n1, n2, d, sym, g, s);
-    case MAT12: return launch_gram<T, MAT12>(X1, X2, p, out, n1, n2, d, sym, g, s);
-    case MAT32: return launch_gram<T, MAT32>(X1, X2, p, out, n1, n2, d, sym, g, s);
-    case MAT52: return launch_gram<T, MAT52>(X1, X2, p, out, n1, n2, d, sym, g, s);
-    case RQ: return launch_gram<T, RQ>(X1, X2, p, out, n1, n2, d, sym, g, s);
-    case PERIODIC: return launch_gram<T, PERIODIC>(X1, X2, p, out, n1, n2, d, sym, g, s);
+    case SE: return launch_gram<T, SE>(X1, X2, p, out, n1, n2, d, sym, bt, g, s);
+    case MAT12: return launch_gram<T, MAT12>(X1, X2, p, out, n1, n2, d, sym, bt, g, s);
+    case MAT32: return launch_gram<T, MAT32>(X1, X2, p, out, n1, n2, d, sym, bt, g, s);
+    case MAT52: return launch_gram<T, MAT52>(X1, X2, p, out, n1, n2, d, sym, bt, g, s);
+    case RQ: return launch_gram<T, RQ>(X1, X2, p, out, n1, n2, d, sym, bt, g, s);
+    case PERIODIC: return launch_gram<T, PERIODIC>(X1, X2, p, out, n1, n2, d, sym, bt, g, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// scratch, in elements of T: [dp partials: 3 a block, for up to
-// MAX_BLOCKS_PER_SM blocks an SM][rows: ntiles d 64][cols: ntiles d 64]
-template <typename T, int F>
+// scratch, in elements of T: [dp partials: 3 a block and chain, for up to
+// MAX_BLOCKS_PER_SM blocks an SM][rows: chains ntiles d 64][cols: the same]
+template <typename T, int F, bool BATCHED>
 int launch_vjp(const T* X1, const T* X2, const T* p, const T* G, T* dp, T* dX1, T* dX2,
                T* scratch, int n1, int n2, int d, int sym, int need_dp, int need_dx1,
-               int need_dx2, int want, cudaStream_t stream) {
+               int need_dx2, Batch bt, int want, cudaStream_t stream) {
   static int cache[16] = {0};
-  const int most = resident_blocks(gram_vjp_kernel<T, F>, cache);
+  const int most = resident_blocks(gram_vjp_kernel<T, F, BATCHED>, cache);
   int sms = 0, dev = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (most <= 0 || most > MAX_BLOCKS_PER_SM * sms) return (int)cudaErrorInvalidConfiguration;
   const long long ntiles = tile_count(n1, n2, sym);
-  const int grid = walk_grid(want, most, ntiles);
+  const long long pairs = ntiles * bt.chains;
+  const int grid = walk_grid(want, most, pairs);
   const int nb1 = (n1 + TILE - 1) / TILE, nb2 = (n2 + TILE - 1) / TILE;
   const int need_rows = need_dx1, need_cols = sym ? need_dx1 : need_dx2;
   T* part_dp = scratch;
-  T* part_rows = part_dp + 3LL * MAX_BLOCKS_PER_SM * sms;
-  T* part_cols = part_rows + (need_rows ? ntiles * d * TILE : 0);
-  gram_vjp_kernel<T, F><<<grid, THREADS, 0, stream>>>(
+  T* part_rows = part_dp + 3LL * bt.chains * MAX_BLOCKS_PER_SM * sms;
+  T* part_cols = part_rows + (need_rows ? pairs * d * TILE : 0);
+  gram_vjp_kernel<T, F, BATCHED><<<grid, THREADS, 0, stream>>>(
       X1, X2, p, G, part_dp, part_rows, part_cols, n1, n2, d, sym, ntiles, nb2, need_dp,
-      need_rows, need_cols);
+      need_rows, need_cols, bt.chains, bt.sx1, bt.sx2, bt.sp);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const long long elems = (need_dx1 ? (long long)n1 * d : 0) + (need_dx2 ? (long long)n2 * d : 0);
+  const long long elems =
+      ((need_dx1 ? (long long)n1 * d : 0) + (need_dx2 ? (long long)n2 * d : 0)) * bt.chains;
   long long rgrid = (elems + THREADS - 1) / THREADS;
+  if (need_dp && rgrid < bt.chains) rgrid = bt.chains;  // a block a chain's dp
   rgrid = rgrid < 1 ? 1 : (rgrid > 4096 ? 4096 : rgrid);
-  gram_vjp_reduce<T><<<(int)rgrid, THREADS, 0, stream>>>(
-      part_dp, grid, part_rows, part_cols, dp, dX1, dX2, n1, n2, d, sym, nb1, nb2, need_dp,
-      need_dx1, need_dx2);
+  if (BATCHED)
+    gram_vjp_reduce_chains<T><<<(int)rgrid, THREADS, 0, stream>>>(
+        part_dp, grid, part_rows, part_cols, dp, dX1, dX2, n1, n2, d, sym, nb1, nb2, need_dp,
+        need_dx1, need_dx2, bt.chains, ntiles);
+  else
+    gram_vjp_reduce<T><<<(int)rgrid, THREADS, 0, stream>>>(
+        part_dp, grid, part_rows, part_cols, dp, dX1, dX2, n1, n2, d, sym, nb1, nb2, need_dp,
+        need_dx1, need_dx2);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int F>
+int launch_vjp(const T* X1, const T* X2, const T* p, const T* G, T* dp, T* dX1, T* dX2,
+               T* scratch, int n1, int n2, int d, int sym, int need_dp, int need_dx1,
+               int need_dx2, Batch bt, int want, cudaStream_t stream) {
+  return bt.chains == 1
+             ? launch_vjp<T, F, false>(X1, X2, p, G, dp, dX1, dX2, scratch, n1, n2, d, sym,
+                                       need_dp, need_dx1, need_dx2, bt, want, stream)
+             : launch_vjp<T, F, true>(X1, X2, p, G, dp, dX1, dX2, scratch, n1, n2, d, sym,
+                                      need_dp, need_dx1, need_dx2, bt, want, stream);
 }
 
 template <typename T>
 int vjp_any(const T* X1, const T* X2, const T* p, const T* G, T* dp, T* dX1, T* dX2,
             T* scratch, int n1, int n2, int d, int family, int sym, int need_dp,
-            int need_dx1, int need_dx2, int g, cudaStream_t s) {
+            int need_dx1, int need_dx2, Batch bt, int g, cudaStream_t s) {
 #define GRAM_VJP_CASE(F)                                                                   \
   case F:                                                                                  \
     return launch_vjp<T, F>(X1, X2, p, G, dp, dX1, dX2, scratch, n1, n2, d, sym, need_dp, \
-                            need_dx1, need_dx2, g, s);
+                            need_dx1, need_dx2, bt, g, s);
   switch (family) {
     GRAM_VJP_CASE(SE)
     GRAM_VJP_CASE(MAT12)
@@ -717,42 +883,50 @@ int vjp_any(const T* X1, const T* X2, const T* p, const T* G, T* dp, T* dX1, T* 
 
 }  // namespace
 
-// C interface, bound with ctypes by ops/gram.py. X1 (n1, d), X2 (n2, d) and
-// out (n1, n2) are contiguous row-major; p holds 3 values; grid is the
-// walk's number of blocks (<= 0: as many as fit on the card at once); stream
-// is the caller's CUDA stream. Each returns the launch's cudaError_t (0 on
-// success).
+// C interface, bound with ctypes by ops/gram.py. For each of `chains` chains
+// c: X1 + c sx1 (n1, d), X2 + c sx2 (n2, d) and p + c sp (3 values), strides
+// in elements (0: shared by the chains), and out (chains, n1, n2), all
+// contiguous row-major; grid is the walk's number of blocks (<= 0: as many
+// as fit on the card at once); stream is the caller's CUDA stream. Each
+// returns the launch's cudaError_t (0 on success).
 extern "C" int gram_f32(const float* X1, const float* X2, const float* p, float* out, int n1,
-                        int n2, int d, int family, int sym, int grid, void* stream) {
-  return gram_any<float>(X1, X2, p, out, n1, n2, d, family, sym, grid,
-                         static_cast<cudaStream_t>(stream));
+                        int n2, int d, int family, int sym, int chains, long long sx1,
+                        long long sx2, long long sp, int grid, void* stream) {
+  return gram_any<float>(X1, X2, p, out, n1, n2, d, family, sym, Batch{chains, sx1, sx2, sp},
+                         grid, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gram_f64(const double* X1, const double* X2, const double* p, double* out,
-                        int n1, int n2, int d, int family, int sym, int grid, void* stream) {
-  return gram_any<double>(X1, X2, p, out, n1, n2, d, family, sym, grid,
-                          static_cast<cudaStream_t>(stream));
+                        int n1, int n2, int d, int family, int sym, int chains, long long sx1,
+                        long long sx2, long long sp, int grid, void* stream) {
+  return gram_any<double>(X1, X2, p, out, n1, n2, d, family, sym, Batch{chains, sx1, sx2, sp},
+                          grid, static_cast<cudaStream_t>(stream));
 }
 
-// The VJP of gram_*: G (n1, n2) contiguous; dp (3), dX1 (n1, d), dX2 (n2, d)
-// written where need_* is set (dX2 never when sym: X1's gradient takes both
-// sides). scratch holds 3 * 8 * (the card's SMs) + s * ntiles * d * 64
-// elements, s the sides whose partials are needed (rows for dX1, columns for
-// dX2, both for a symmetric dX1) and ntiles the tiles of the walk
-// (`vjp_scratch_elems` in ops/gram.py).
+// The VJP of gram_*: G (chains, n1, n2) contiguous; dp (chains, 3), dX1
+// (chains, n1, d), dX2 (chains, n2, d) written where need_* is set (dX2 never
+// when sym: X1's gradient takes both sides), one gradient a chain even where
+// the chains share an operand. scratch holds chains * (3 * 8 * (the card's
+// SMs) + s * ntiles * d * 64) elements, s the sides whose partials are
+// needed (rows for dX1, columns for dX2, both for a symmetric dX1) and ntiles
+// the tiles of one chain's walk (`vjp_scratch_elems` in ops/gram.py).
 extern "C" int gram_vjp_f32(const float* X1, const float* X2, const float* p, const float* G,
                             float* dp, float* dX1, float* dX2, float* scratch, int n1, int n2,
                             int d, int family, int sym, int need_dp, int need_dx1, int need_dx2,
-                            int grid, void* stream) {
+                            int chains, long long sx1, long long sx2, long long sp, int grid,
+                            void* stream) {
   return vjp_any<float>(X1, X2, p, G, dp, dX1, dX2, scratch, n1, n2, d, family, sym, need_dp,
-                        need_dx1, need_dx2, grid, static_cast<cudaStream_t>(stream));
+                        need_dx1, need_dx2, Batch{chains, sx1, sx2, sp}, grid,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gram_vjp_f64(const double* X1, const double* X2, const double* p,
                             const double* G, double* dp, double* dX1, double* dX2,
                             double* scratch, int n1, int n2, int d, int family, int sym,
-                            int need_dp, int need_dx1, int need_dx2, int grid, void* stream) {
+                            int need_dp, int need_dx1, int need_dx2, int chains, long long sx1,
+                            long long sx2, long long sp, int grid, void* stream) {
   return vjp_any<double>(X1, X2, p, G, dp, dX1, dX2, scratch, n1, n2, d, family, sym, need_dp,
-                         need_dx1, need_dx2, grid, static_cast<cudaStream_t>(stream));
+                         need_dx1, need_dx2, Batch{chains, sx1, sx2, sp}, grid,
+                         static_cast<cudaStream_t>(stream));
 }
 

@@ -44,6 +44,10 @@ class DensePD(Module):
         """L^-1 B."""
         return solve_lower(self.L, B)
 
+    def unwhiten(self, v):
+        """L v: maps whitened latents to f-space."""
+        return self.L @ v
+
     def logdet(self):
         return chol_logdet(self.L)
 
@@ -56,6 +60,10 @@ class DensePD(Module):
 @module(static=())
 class FullCovariance(Module):
     """Exact dense covariance strategy."""
+
+    # the built PD exposes unwhiten(), so GPA's whitened-latent
+    # parameterization (f = mu + L v) is available
+    supports_whitened_latents = True
 
     def build(self, kernel, noise_var, X) -> DensePD:
         """K(X, X) + diag(noise_var); noise_var scalar or (n,) vector

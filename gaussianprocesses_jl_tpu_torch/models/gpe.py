@@ -96,12 +96,12 @@ def gpe_predict_f(params: GPEParams, X, y, Xs, covstrat=FullCovariance(),
 # ---------------------------------------------------------------------------
 
 
-def _device(device) -> torch.device:
+def _device(device, model: str = "GPE") -> torch.device:
     """The model's device: the card unless the caller names another."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "GPE runs on the CUDA device and none is available; "
+            f"{model} runs on the CUDA device and none is available; "
             "pass device='cpu' to run on the CPU")
     return device
 
@@ -128,6 +128,18 @@ def _embed(full, sub, slices, flags):
         else:
             parts.append(full[s])
     return torch.cat(parts)
+
+
+def _mvn_draws(mu, cov, n_samples, generator):
+    """mu + U sqrt(max(w, 0)) z for cov = U diag(w) U^T: exact for a PSD cov,
+    robust for a slightly indefinite f32 one."""
+    with torch.no_grad():
+        w, U = torch.linalg.eigh(cov)
+        scale = torch.sqrt(torch.clamp(w, min=0.0))
+        z = torch.randn((cov.shape[0], n_samples), generator=generator, dtype=cov.dtype,
+                        device=cov.device)
+        out = mu[:, None] + U @ (scale[:, None] * z)
+    return out[:, 0] if n_samples == 1 else out
 
 
 class GPE:
@@ -271,6 +283,21 @@ class GPE:
             return mu, cov + torch.diag(nv.expand(cov.shape[0]))
         return mu, cov + nv
 
+    def rand(self, xs, n_samples: int = 1, *, from_prior: bool = False,
+             generator: torch.Generator | None = None):
+        """Latent draws at xs, from the posterior (or the prior when
+        `from_prior` or there is no data), through eigh with the spectrum
+        clamped at 0: in f32 the posterior covariance can be slightly
+        indefinite. `generator` lives on the model's device; its draws differ
+        from `jax.random`'s."""
+        xs = _as_X(xs, dtype=self.dtype, device=self.device)
+        if from_prior or self.nobs == 0:
+            with torch.no_grad():
+                mu, cov = self.params.mean.mean(xs), self.params.kernel.gram(xs)
+        else:
+            mu, cov = self.predict_f(xs, full_cov=True)
+        return _mvn_draws(mu, cov, n_samples, generator)
+
     # -- data updates ------------------------------------------------------
     def fit(self, x, y):
         """Replace the data."""
@@ -346,10 +373,11 @@ class GPE:
 
 
 def GP(x, y, mean=None, kernel=None, lik=None, lognoise=-2.0, device=None):
-    """GPE for Gaussian observations. Non-Gaussian likelihoods (GPA) are
-    not ported yet."""
+    """GPE for Gaussian observations, GPA when a likelihood is given."""
     if lik is not None:
-        raise NotImplementedError("GPA (a likelihood other than Gaussian) is not ported yet")
+        from .gpa import GPA
+
+        return GPA(x, y, mean, kernel, lik, device=device)
     return GPE(x, y, mean=mean, kernel=kernel, lognoise=lognoise, device=device)
 
 

@@ -13,6 +13,15 @@ A kernel module reaches the op through its profile family (an integer,
 one per profile formula) and a 3-vector of hyperparameters
 p = [lsigma, ll, extra], which take the place of the JAX package's `_pack`.
 ARD modules pre-scale their inputs and pass ll = 0.
+
+A batch of chains: any of p (C, 3), X1 (C, n1, d) and X2 (C, n2, d) may
+carry a leading chain dimension (an operand without one is shared by the
+chains), and one launch computes the C grams (C, n1, n2), or their VJP. A
+sampler writes its target for one chain and batches it with
+`torch.func.vmap`; the op's vmap rules (`_Gram.vmap`, `_GramVJP.vmap`) move
+the batch to the front and call the batched op, so `vmap(grad(target))` over
+C chains launches each kernel once. The backward is an autograd.Function of
+its own, so that its vmap rule sees plain tensors too.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ from .distance import safe_dist, sqdist
 
 __all__ = ["SE", "MAT12", "MAT32", "MAT52", "RQ", "PERIODIC", "LAUNCHES", "TILE",
            "profile", "gram_derivs", "gram_plain", "gram_vjp_plain", "gram", "launch_gram",
-           "launch_gram_vjp", "tile_count", "vjp_scratch_elems"]
+           "launch_gram_vjp", "tile_count", "vjp_scratch_elems", "chain_count"]
 
 # profile families, numbered as in csrc/gram.cu
 SE, MAT12, MAT32, MAT52, RQ, PERIODIC = range(6)
@@ -102,9 +111,32 @@ def gram_derivs(family: int, p: torch.Tensor, r2: torch.Tensor) -> tuple:
             -4.0 * K * sn * cs * il2 * math.pi * torch.exp(-extra) * half_ir)
 
 
+def chain_count(p: torch.Tensor, X1: torch.Tensor, X2: torch.Tensor | None = None,
+                G: torch.Tensor | None = None):
+    """The chain count C of the operands that carry a chain dimension (p
+    (C, 3), X1 (C, n1, d), X2 (C, n2, d), G (C, n1, n2)), or None when none
+    does; raises when they disagree."""
+    counts = {t.shape[0] for t, nd in ((p, 2), (X1, 3), (X2, 3), (G, 3))
+              if t is not None and t.ndim == nd}
+    if len(counts) > 1:
+        raise ValueError(f"gram: chain counts differ: {sorted(counts)}")
+    return counts.pop() if counts else None
+
+
+def _dims(*ts):
+    """vmap's in_dims for the op's operands: 0 where one carries the chain
+    dimension (p 2-D, an input or cotangent 3-D), None otherwise."""
+    return tuple(None if t is None or t.ndim == (1 if i == 0 else 2) else 0
+                 for i, t in enumerate(ts))
+
+
 def gram_plain(family: int, p: torch.Tensor, X1: torch.Tensor,
                X2: torch.Tensor | None = None) -> torch.Tensor:
-    """profile(sqdist(X1, X2)): the plain version of the kernel."""
+    """profile(sqdist(X1, X2)): the plain version of the kernel; over a batch
+    of chains, the same vmapped."""
+    if chain_count(p, X1, X2) is not None:
+        return torch.func.vmap(lambda q, A, B: gram_plain(family, q, A, B),
+                               in_dims=_dims(p, X1, X2))(p, X1, X2)
     return profile(family, p, sqdist(X1, X2))
 
 
@@ -112,13 +144,18 @@ def gram_vjp_plain(family: int, p: torch.Tensor, X1: torch.Tensor, X2: torch.Ten
                    G: torch.Tensor, needs=(True, True, True)) -> tuple:
     """(dp, dX1, dX2): the vector-Jacobian product of `gram_plain` with the
     cotangent G, each None where `needs` (p, X1, X2) does not ask for it;
-    the plain version of `gram_vjp_kernel`.
+    the plain version of `gram_vjp_kernel`. Over a batch of chains (G
+    (C, n1, n2)), the same vmapped: one gradient a chain, (C, ...).
 
     dp = sum_ij G_ij dK_ij/dp; dX1_i = sum_j W_ij (x1_i - x2_j) and
     dX2_j = sum_i W_ij (x2_j - x1_i) with W = 2 G dK/dr2. On a symmetric gram
     (X2 None) X1's gradient takes both sides, W becomes W + W^T, and the
     pinned diagonal gives no distance gradient."""
     sym = X2 is None
+    if chain_count(p, X1, X2, G) is not None:
+        outs = tuple(0 if n else None for n in (needs[0], needs[1], needs[2] and not sym))
+        return torch.func.vmap(lambda q, A, B, H: gram_vjp_plain(family, q, A, B, H, needs),
+                               in_dims=_dims(p, X1, X2, G), out_dims=outs)(p, X1, X2, G)
     K, dll, dex, dr2 = gram_derivs(family, p, sqdist(X1, X2))
     dp = (torch.stack([2.0 * torch.sum(G * K), torch.sum(G * dll), torch.sum(G * dex)])
           if needs[0] else None)
@@ -150,43 +187,56 @@ def tile_count(n1: int, n2: int, sym: bool) -> int:
 
 
 def vjp_scratch_elems(n1: int, n2: int, d: int, sym: bool, need_dx1: bool, need_dx2: bool,
-                      sms: int) -> int:
-    """Elements of the VJP kernel's scratch: 3 partials for each block that
-    can be resident, then 64 x d partials a tile for each side asked for
-    (rows for dX1, columns for dX2, both for a symmetric dX1)."""
+                      sms: int, chains: int = 1) -> int:
+    """Elements of the VJP kernel's scratch, for each chain: 3 partials for
+    each block that can be resident, then 64 x d partials a tile for each
+    side asked for (rows for dX1, columns for dX2, both for a symmetric
+    dX1)."""
     sides = 2 * need_dx1 if sym else need_dx1 + need_dx2
-    return 3 * _MAX_BLOCKS_PER_SM * sms + sides * tile_count(n1, n2, sym) * d * TILE
+    return chains * (3 * _MAX_BLOCKS_PER_SM * sms + sides * tile_count(n1, n2, sym) * d * TILE)
 
 
-def _check(family, p, X1, X2):
+def _check(family, p, X1, X2, G=None):
+    """The chain count (None: one gram) of operands the kernels take."""
     if not 0 <= family <= PERIODIC:
         raise ValueError(f"unknown profile family {family}")
     for name, t in (("X1", X1), ("X2", X2)):
         if t.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"gram: {name} must be float32 or float64, got {t.dtype}")
-        if t.ndim != 2:
-            raise ValueError(f"gram: {name} must be 2-D, got shape {tuple(t.shape)}")
+        if t.ndim not in (2, 3):
+            raise ValueError(f"gram: {name} must be (n, d) or (chains, n, d), "
+                             f"got shape {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"gram: {name} must be contiguous")
         if t.device != X1.device:
             raise ValueError(f"gram: {name} is on {t.device}, X1 on {X1.device}")
     if X2.dtype != X1.dtype or p.dtype != X1.dtype:
         raise TypeError(f"gram: dtypes differ: X1 {X1.dtype}, X2 {X2.dtype}, p {p.dtype}")
-    if X2.shape[1] != X1.shape[1]:
-        raise ValueError(f"gram: feature counts differ: {X1.shape[1]} and {X2.shape[1]}")
-    if p.shape != (3,) or not p.is_contiguous() or p.device != X1.device:
-        raise ValueError(f"gram: p must be a contiguous 3-vector on {X1.device}")
-    if max(X1.shape[0], X2.shape[0]) >= 2**31 - TILE:
+    if X2.shape[-1] != X1.shape[-1]:
+        raise ValueError(f"gram: feature counts differ: {X1.shape[-1]} and {X2.shape[-1]}")
+    if (p.ndim not in (1, 2) or p.shape[-1] != 3 or not p.is_contiguous()
+            or p.device != X1.device):
+        raise ValueError(f"gram: p must be a contiguous (3,) or (chains, 3) tensor on "
+                         f"{X1.device}")
+    if max(X1.shape[-2], X2.shape[-2]) >= 2**31 - TILE:
         raise ValueError(f"gram: at most {2**31 - TILE - 1} rows")
+    return chain_count(p, X1, X2, G)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+def _strides(p, X1, X2, sym):
+    """Elements between chains of X1, X2 and p: 0 where the chains share it."""
+    sx1 = X1.shape[-2] * X1.shape[-1] if X1.ndim == 3 else 0
+    sx2 = sx1 if sym else (X2.shape[-2] * X2.shape[-1] if X2.ndim == 3 else 0)
+    return sx1, sx2, 3 if p.ndim == 2 else 0
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points of csrc/gram.cu and their argument types
 _ARGTYPES = {
-    "gram_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "gram_f64": [_P] * 4 + [_I] * 6 + [_P],
-    "gram_vjp_f32": [_P] * 8 + [_I] * 9 + [_P],
-    "gram_vjp_f64": [_P] * 8 + [_I] * 9 + [_P],
+    "gram_f32": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
+    "gram_f64": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
+    "gram_vjp_f32": [_P] * 8 + [_I] * 9 + [_L] * 3 + [_I, _P],
+    "gram_vjp_f64": [_P] * 8 + [_I] * 9 + [_L] * 3 + [_I, _P],
 }
 _ENTRIES: dict = {}
 _SMS: dict = {}
@@ -226,20 +276,23 @@ def launch_gram(family: int, p: torch.Tensor, X1: torch.Tensor,
                 X2: torch.Tensor | None = None, grid: int = 0) -> torch.Tensor:
     """Launch `gram_kernel` of `csrc/gram.cu` on CUDA tensors:
     K = profile(|X1_i - X2_j|^2), with the diagonal pinned to profile(0)
-    when X2 is None. Its blocks walk the output's tiles: `grid` of them, or
-    as many as fit on the card at once when grid <= 0."""
+    when X2 is None; (C, n1, n2) for a batch of C chains, all in one launch.
+    Its blocks walk the (chain, tile) pairs: `grid` of them, or as many as
+    fit on the card at once when grid <= 0."""
     sym = X2 is None
     X2 = X1 if sym else X2
-    _check(family, p, X1, X2)
+    chains = _check(family, p, X1, X2)
     if X1.device.type != "cuda":
         raise ValueError(f"launch_gram needs CUDA tensors, got {X1.device}")
-    n1, d = X1.shape
-    n2 = X2.shape[0]
-    out = torch.empty((n1, n2), dtype=X1.dtype, device=X1.device)
+    n1, d = X1.shape[-2:]
+    n2 = X2.shape[-2]
+    shape = (n1, n2) if chains is None else (chains, n1, n2)
+    out = torch.empty(shape, dtype=X1.dtype, device=X1.device)
     if out.numel() == 0:
         return out
     _call(f"gram_{_suffix(X1.dtype)}", X1.device, X1.data_ptr(), X2.data_ptr(), p.data_ptr(),
-          out.data_ptr(), n1, n2, d, family, int(sym), int(grid))
+          out.data_ptr(), n1, n2, d, family, int(sym), chains or 1,
+          *_strides(p, X1, X2, sym), int(grid))
     LAUNCHES["gram"] += 1
     return out
 
@@ -248,51 +301,93 @@ def launch_gram_vjp(family: int, p: torch.Tensor, X1: torch.Tensor, X2: torch.Te
                     G: torch.Tensor, needs=(True, True, True), grid: int = 0) -> tuple:
     """Launch `gram_vjp_kernel` and its reduction on CUDA tensors: (dp, dX1,
     dX2) as `gram_vjp_plain` computes them, each None where `needs` does not
-    ask for it. G is the (n1, n2) contiguous cotangent. `grid` as for
-    `launch_gram`; the sums' order, and so their last bits, follow it."""
+    ask for it. G is the (n1, n2) contiguous cotangent, or (C, n1, n2) for a
+    batch of chains, whose gradients are then (C, 3), (C, n1, d) and
+    (C, n2, d), one a chain even where the chains share an operand. `grid`
+    as for `launch_gram`; the sums' order, and so their last bits, follow
+    it."""
     sym = X2 is None
     X2c = X1 if sym else X2
-    _check(family, p, X1, X2c)
-    n1, d = X1.shape
-    n2 = X2c.shape[0]
-    if G.shape != (n1, n2) or G.dtype != X1.dtype or G.device != X1.device:
-        raise ValueError(f"gram_vjp: the cotangent must be ({n1}, {n2}) {X1.dtype} on "
+    chains = _check(family, p, X1, X2c, G)
+    n1, d = X1.shape[-2:]
+    n2 = X2c.shape[-2]
+    lead = () if chains is None else (chains,)
+    if G.shape != (*lead, n1, n2) or G.dtype != X1.dtype or G.device != X1.device:
+        raise ValueError(f"gram_vjp: the cotangent must be {(*lead, n1, n2)} {X1.dtype} on "
                          f"{X1.device}, got {tuple(G.shape)} {G.dtype} on {G.device}")
     if not G.is_contiguous():
         raise ValueError("gram_vjp: the cotangent must be contiguous")
     if X1.device.type != "cuda":
         raise ValueError(f"launch_gram_vjp needs CUDA tensors, got {X1.device}")
     need_dp, need_dx1, need_dx2 = bool(needs[0]), bool(needs[1]), bool(needs[2]) and not sym
-    if n1 == 0 or n2 == 0:
-        return (X1.new_zeros(3) if need_dp else None, torch.zeros_like(X1) if need_dx1 else None,
-                torch.zeros_like(X2c) if need_dx2 else None)
     # the kernels write every element asked for
-    dp = X1.new_empty(3) if need_dp else None
-    dX1 = torch.empty_like(X1) if need_dx1 else None
-    dX2 = torch.empty_like(X2c) if need_dx2 else None
+    dp = X1.new_empty((*lead, 3)) if need_dp else None
+    dX1 = X1.new_empty((*lead, n1, d)) if need_dx1 else None
+    dX2 = X1.new_empty((*lead, n2, d)) if need_dx2 else None
+    if n1 == 0 or n2 == 0 or chains == 0:
+        return tuple(None if t is None else t.zero_() for t in (dp, dX1, dX2))
     if not (need_dp or need_dx1 or need_dx2):
         return dp, dX1, dX2
     sms = _SMS.get(X1.device.index)
     if sms is None:
         sms = _SMS[X1.device.index] = torch.cuda.get_device_properties(X1.device).multi_processor_count
-    scratch = torch.empty(vjp_scratch_elems(n1, n2, d, sym, need_dx1, need_dx2, sms),
+    scratch = torch.empty(vjp_scratch_elems(n1, n2, d, sym, need_dx1, need_dx2, sms, chains or 1),
                           dtype=X1.dtype, device=X1.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _call(f"gram_vjp_{_suffix(X1.dtype)}", X1.device, X1.data_ptr(), X2c.data_ptr(),
           p.data_ptr(), G.data_ptr(), ptr(dp), ptr(dX1), ptr(dX2), scratch.data_ptr(),
-          n1, n2, d, family, int(sym), int(need_dp), int(need_dx1), int(need_dx2), int(grid))
+          n1, n2, d, family, int(sym), int(need_dp), int(need_dx1), int(need_dx2),
+          chains or 1, *_strides(p, X1, X2c, sym), int(grid))
     LAUNCHES["gram_vjp"] += 1
     return dp, dX1, dX2
 
 
-class _Gram(torch.autograd.Function):
-    """Forward and backward by the kernels (CUDA) or the plain versions
-    (CPU)."""
+def _front(t, dim, size=None):
+    """`t` with its vmap batch dimension `dim` moved to the front,
+    contiguous; `t` itself where it has none, or broadcast to `size` chains
+    when a size is given."""
+    if t is None:
+        return None
+    if dim is None:
+        return t if size is None else t.expand(size, *t.shape).contiguous()
+    return t.movedim(dim, 0).contiguous()
+
+
+class _GramVJP(torch.autograd.Function):
+    """The gram's backward: the VJP kernel (CUDA) or `gram_vjp_plain` (CPU).
+    An autograd.Function of its own, so that under `torch.func.vmap` its
+    rule batches the chains into one launch."""
 
     @staticmethod
-    def forward(ctx, family, p, X1, X2):
-        ctx.family = family
-        ctx.save_for_backward(p, X1, X2)
+    def forward(family, needs, p, X1, X2, G):
+        if X1.device.type == "cuda":
+            return launch_gram_vjp(family, p, X1, X2, G.contiguous(), needs)
+        if X1.device.type == "cpu":
+            return gram_vjp_plain(family, p, X1, X2, G, needs)
+        raise ValueError(f"gram: no kernel for device {X1.device}")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the gram op has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, family, needs, p, X1, X2, G):
+        _, _, dp_, d1, d2, dg = in_dims
+        out = _GramVJP.apply(family, needs, _front(p, dp_), _front(X1, d1), _front(X2, d2),
+                             _front(G, dg, info.batch_size))
+        return out, tuple(None if t is None else 0 for t in out)
+
+
+class _Gram(torch.autograd.Function):
+    """Forward by the kernel (CUDA) or the plain version (CPU), backward by
+    `_GramVJP`; under `torch.func.vmap` one batched call for every chain."""
+
+    @staticmethod
+    def forward(family, p, X1, X2):
         if X1.device.type == "cuda":
             return launch_gram(family, p, X1, X2)
         if X1.device.type == "cpu":
@@ -300,14 +395,21 @@ class _Gram(torch.autograd.Function):
         raise ValueError(f"gram: no kernel for device {X1.device}")
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        family, p, X1, X2 = inputs
+        ctx.family = family
+        ctx.save_for_backward(p, X1, X2)
+
+    @staticmethod
     def backward(ctx, g):
         p, X1, X2 = ctx.saved_tensors
-        needs = ctx.needs_input_grad[1:]
-        if X1.device.type == "cuda":
-            grads = launch_gram_vjp(ctx.family, p, X1, X2, g.contiguous(), needs)
-        else:
-            grads = gram_vjp_plain(ctx.family, p, X1, X2, g, needs)
-        return (None, *grads)
+        needs = tuple(ctx.needs_input_grad[1:])
+        return (None, *_GramVJP.apply(ctx.family, needs, p, X1, X2, g))
+
+    @staticmethod
+    def vmap(info, in_dims, family, p, X1, X2):
+        _, dp_, d1, d2 = in_dims
+        return _Gram.apply(family, _front(p, dp_), _front(X1, d1), _front(X2, d2)), 0
 
 
 def gram(family: int, p: torch.Tensor, X1: torch.Tensor,

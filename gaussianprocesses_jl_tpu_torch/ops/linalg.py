@@ -211,18 +211,28 @@ def set_grad_gemm_precision(precision) -> None:
 
 
 class _DenseQuadLogdet(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, K, r):
-        L, ok = _chol(K)
-        w = solve_lower(L, r)
-        quad = torch.sum(w * w)
-        logdet = chol_logdet(L)
-        ctx.save_for_backward(L, w)
-        ctx.mark_non_differentiable(ok)
-        return quad, logdet, ok
+    """Forward and backward in plain PyTorch operations, so `torch.func.vmap`
+    batches both by itself (`generate_vmap_rule`): a vmapped GPE target
+    factors every chain's K in one batched call. The factor L and the
+    whitened w come out as extra, non-differentiable outputs, the form in
+    which `setup_context` can keep them for the backward."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def backward(ctx, quad_bar, logdet_bar, _):
+    def forward(K, r):
+        L, ok = _chol(K)
+        w = solve_lower(L, r)
+        return torch.sum(w * w), chol_logdet(L), ok, L, w
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, ok, L, w = output
+        ctx.save_for_backward(L, w)
+        ctx.mark_non_differentiable(ok, L, w)
+
+    @staticmethod
+    def backward(ctx, quad_bar, logdet_bar, _ok, _L, _w):
         L, w = ctx.saved_tensors
         Linv = tri_inv_lower(L)
         alpha = Linv.T @ w  # K^-1 r
@@ -238,4 +248,4 @@ def dense_quad_logdet(K: torch.Tensor, r: torch.Tensor):
     the Cholesky VJP's triangular solves with an explicit K^-1 built from
     the triangular inverse. On a failed factorization the values are
     meaningless and ok is False."""
-    return _DenseQuadLogdet.apply(K, r)
+    return _DenseQuadLogdet.apply(K, r)[:3]

@@ -17,7 +17,10 @@ the path: `PYTHONPATH=<checkout> python3 <this file>`.
    n x n cotangent at n = 3000: its device time, kernel launches and host
    enqueue per call, for the headline's SE (hyperparameters only), the
    flagship's SE, RQ and Matern 3/2, and an ARD SE (with the inputs'
-   gradient).
+   gradient);
+3. batched: the GPA sampler's grams, 128 chains of Matern 3/2 ARD at
+   n = 200, d = 5, f32, in one launch, forward and VJP (dp and dX), with the
+   same numbers as 1 and the vmapped plain versions.
 The last line of its output is the numbers as one JSON object.
 """
 from __future__ import annotations
@@ -35,7 +38,8 @@ from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
 from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
 
 __all__ = ["HBM_BYTES_PER_S", "F32_FLOPS", "F64_FLOPS", "gram_bound_ms", "gram_vjp_bound_ms",
-           "time_ms", "enqueue_ms", "profile_ms", "forward", "backward_cases", "backward"]
+           "time_ms", "enqueue_ms", "profile_ms", "forward", "backward_cases", "backward",
+           "batched"]
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -44,29 +48,33 @@ F64_FLOPS = 34e12
 D = 10
 
 
-def gram_bound_ms(n1, n2, d, itemsize, sym):
-    """Least time for one gram: inputs read once and the output written
+def gram_bound_ms(n1, n2, d, itemsize, sym, chains=1, x_per_chain=False):
+    """Least time for one gram (or `chains` grams in one launch, their
+    inputs per chain or shared): inputs read once and the output written
     once at the memory rate, or ~3d + 4 operations per output at the
     non-tensor rate, whichever is larger."""
-    nbytes = itemsize * (n1 * d + (0 if sym else n2 * d) + 3 + n1 * n2)
-    ops = n1 * n2 * (3 * d + 4)
+    xc = chains if x_per_chain else 1
+    nbytes = itemsize * (xc * (n1 * d + (0 if sym else n2 * d)) + chains * (3 + n1 * n2))
+    ops = chains * n1 * n2 * (3 * d + 4)
     peak = F32_FLOPS if itemsize == 4 else F64_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def gram_vjp_bound_ms(n1, n2, d, itemsize, sym, need_dx):
-    """Least time for one VJP: the cotangent, the inputs and p read once and
-    dp (and the inputs' gradients) written once at the memory rate, or the
-    kernel's own operations at the non-tensor rate, whichever is larger.
-    Operations per pair (the n (n + 1) / 2 pairs i >= j of a symmetric
-    gram): 3d for the distance, 16 for the profile, its derivatives and the
-    three sums, and with the inputs' gradient 4d + 4 for W and the row and
-    column products."""
+def gram_vjp_bound_ms(n1, n2, d, itemsize, sym, need_dx, chains=1, x_per_chain=False):
+    """Least time for one VJP (or `chains` of them in one launch): the
+    cotangent, the inputs and p read once and dp (and the inputs' gradients,
+    one a chain) written once at the memory rate, or the kernel's own
+    operations at the non-tensor rate, whichever is larger. Operations per
+    pair (the n (n + 1) / 2 pairs i >= j of a symmetric gram): 3d for the
+    distance, 16 for the profile, its derivatives and the three sums, and
+    with the inputs' gradient 4d + 4 for W and the row and column
+    products."""
     xsize = n1 * d + (0 if sym else n2 * d)
-    nbytes = itemsize * (n1 * n2 + xsize + 6 + (xsize if need_dx else 0))
+    xc = chains if x_per_chain else 1
+    nbytes = itemsize * (chains * (n1 * n2 + 6 + (xsize if need_dx else 0)) + xc * xsize)
     pairs = n1 * (n1 + 1) // 2 if sym else n1 * n2
-    ops = pairs * (3 * d + 16 + (4 * d + 4 if need_dx else 0))
+    ops = chains * pairs * (3 * d + 16 + (4 * d + 4 if need_dx else 0))
     peak = F32_FLOPS if itemsize == 4 else F64_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -171,6 +179,44 @@ def backward(device, n=3000) -> dict:
     return out
 
 
+def batched(device) -> dict:
+    """{"forward": {...}, "gram_vjp": {...}} for the GPA sampler's grams: C
+    Matern 3/2 ARD grams in one launch, each chain's inputs scaled by its
+    own length scales (X (C, n, d)), f32, and their VJP with dp and dX on a
+    random cotangent. The plain versions are the vmapped `gram_plain` and
+    `gram_vjp_plain`; `torch.cdist` (distance only) batched beside the
+    forward."""
+    chains, n, d = 128, 200, 5
+    rng = np.random.RandomState(6)
+    f32 = dict(dtype=torch.float32, device=device)
+    A = torch.as_tensor(rng.randn(chains, n, d), **f32)
+    P = torch.as_tensor(0.1 * rng.randn(chains, 3), **f32)
+    P[:, 1] = 0.0  # ARD: the length scales are in the inputs
+    G = torch.as_tensor(rng.randn(chains, n, n), **f32)
+    fam, needs = gram_op.MAT32, (True, True, False)
+    fwd = lambda: gram_op.launch_gram(fam, P, A)  # noqa: E731
+    vjp = lambda: gram_op.launch_gram_vjp(fam, P, A, None, G, needs)  # noqa: E731
+    out = {}
+    for name, call, match, plain, (bound, by), extra in (
+            ("forward", fwd, "gram_kernel", lambda: gram_op.gram_plain(fam, P, A),
+             gram_bound_ms(n, n, d, 4, True, chains, True),
+             {"cdist_ms": time_ms(lambda: torch.cdist(A, A))}),
+            ("gram_vjp", vjp, "gram_vjp", lambda: gram_op.gram_vjp_plain(fam, P, A, None, G,
+                                                                         needs),
+             gram_vjp_bound_ms(n, n, d, 4, True, True, chains, True), {})):
+        own, launches, _ = profile_ms(call, match=match)
+        row = {"chains": chains, "n": n, "d": d, "own_ms": own, "launches_per_call": launches,
+               "call_ms": time_ms(call), "enqueue_ms": enqueue_ms(call), "bound_ms": bound,
+               "bound_by": by, "plain_ms": time_ms(plain), **extra}
+        out[name] = row
+        print(f"batched {name} Mat32 ARD f32 C={chains} n={n} d={d}: own {own:.4f} ms "
+              f"({100 * bound / own:.1f}% of the {by} bound {bound:.4f} ms), call "
+              f"{row['call_ms']:.4f} ms, enqueue {row['enqueue_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms"
+              + (f", torch.cdist {extra['cdist_ms']:.4f} ms" if extra else ""), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("gram_study: no CUDA device", file=sys.stderr)
@@ -179,7 +225,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"package: {gp.__file__}", flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    result = {"forward": forward(dev), "backward": backward(dev)}
+    result = {"forward": forward(dev), "backward": backward(dev), "batched": batched(dev)}
     print(json.dumps(result))
     return 0
 

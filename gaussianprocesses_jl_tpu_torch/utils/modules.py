@@ -131,6 +131,19 @@ class Module:
             out.extend(v.tensors() if isinstance(v, Module) else [v])
         return out
 
+    def with_tensors(self, leaves) -> "Module":
+        """A copy whose tensor leaves are `leaves`, in the order `tensors()`
+        gives them: how a batched sampler rebuilds a module (a cached
+        factor) from the tensors that `torch.func.vmap` returns."""
+        it = iter(leaves)
+
+        def rebuild(m):
+            return dataclasses.replace(m, **{
+                f: rebuild(v) if isinstance(v, Module) else next(it)
+                for f in m._data_fields for v in (getattr(m, f),)})
+
+        return rebuild(self)
+
     @property
     def dtype(self) -> torch.dtype:
         leaves = self.tensors()
@@ -202,13 +215,21 @@ class Module:
         return dataclasses.replace(self, **updates)
 
     def prior_logpdf(self) -> torch.Tensor:
-        """Sum of log prior densities over this module's flat params."""
+        """Sum of log prior densities over this module's flat params. Every
+        prior's logpdf is elementwise, so a run of equal priors (an ARD
+        kernel's length scales under one Normal, say) takes one call on its
+        slice: fewer operators for each evaluation of a sampler's target."""
         priors = self.priors_flat()
         flat = self.flat_params()
         total = flat.new_zeros(())
-        for i, pr in enumerate(priors):
-            if pr is not None:
-                total = total + pr.logpdf(flat[i])
+        i = 0
+        while i < len(priors):
+            j = i + 1
+            while j < len(priors) and priors[j] == priors[i]:
+                j += 1
+            if priors[i] is not None:
+                total = total + torch.sum(priors[i].logpdf(flat[i:j]))
+            i = j
         return total
 
     def sample_priors(self, generator: torch.Generator | None = None):

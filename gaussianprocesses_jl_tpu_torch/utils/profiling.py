@@ -1,11 +1,13 @@
 """Tracing and timing helpers (counterpart of
 `gaussianprocesses_jl_tpu/utils/profiling.py`).
 
-Five tools:
+Six tools:
   * `trace(dir)`             - context manager writing a `torch.profiler`
                                trace (Chrome/Perfetto JSON) of the block.
   * `device_ms_by_name(fn)`  - the card's time per call of fn(*args) by
                                kernel and by operator, from torch.profiler.
+  * `device_profile(fn)`     - the same as device-busy ms and the top
+                               kernels and operators.
   * `StepTimer`              - wall-clock per-step timing with warmup
                                discard; for sampler and optimizer loops.
   * `device_time(fn, args)`  - seconds per evaluation of fn(*args): CUDA
@@ -23,7 +25,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-__all__ = ["trace", "device_ms_by_name", "StepTimer", "device_time", "live_device_bytes"]
+__all__ = ["trace", "device_ms_by_name", "device_profile", "StepTimer", "device_time",
+           "live_device_bytes"]
 
 
 def _profiler():
@@ -80,6 +83,21 @@ def device_ms_by_name(fn: Callable, args: Sequence = (), reps: int = 5,
             into = kernels if e.device_type == DeviceType.CUDA else ops
             into[e.key] = (e.self_device_time_total / 1e3 / reps, e.count / reps)
     return kernels, ops
+
+
+def device_profile(fn: Callable, reps: int = 5, top: int = 10) -> tuple:
+    """`reps` calls of fn under torch.profiler: (device-busy ms per call, the
+    `top` device kernels and the `top` operators by self device time per
+    call, each as (name, ms, calls)). Busy time sums the kernels alone: an
+    operator's self device time is its kernels' time counted again."""
+    kernels, ops = device_ms_by_name(fn, reps=reps)
+
+    def ranked(rows):
+        rows = sorted(rows.items(), key=lambda kv: -kv[1][0])
+        return [(key, ms, int(calls)) for key, (ms, calls) in rows[:top]]
+
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    return busy_ms, ranked(kernels), ranked(ops)
 
 
 def _sync(outputs) -> None:

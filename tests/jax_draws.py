@@ -1,0 +1,102 @@
+"""Replaying the JAX package's random draws through the port's samplers.
+
+The port's samplers take their random numbers from a `RandomStream`; the
+JAX package's from `jax.random` keys, split as its samplers split them.
+`Replay` is a stream that hands out draws made here from those keys, so a
+test runs the port's deterministic cores on exactly the numbers the JAX
+sampler used and compares the results (not draws: the two generators
+differ). Imported by the tests; collects no test itself.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from gaussianprocesses_jl_tpu_torch.inference.hmc import RandomStream
+
+
+def hmc_draws(keys, D, Lmin, Lmax, dtype=jnp.float64):
+    """(z (C, D), L (C,), u (C,)) of `hmc_iteration`'s draws, one key a
+    chain: split(key, 3), then normal, randint and uniform."""
+    zs, Ls, us = [], [], []
+    for k in keys:
+        k_mom, k_len, k_mh = jax.random.split(k, 3)
+        zs.append(np.asarray(jax.random.normal(k_mom, (D,), dtype=dtype)))
+        Ls.append(int(jax.random.randint(k_len, (), Lmin, Lmax + 1)))
+        us.append(float(jax.random.uniform(k_mh, (), dtype=dtype)))
+    return np.stack(zs), np.asarray(Ls), np.asarray(us)
+
+
+def split_draws(keys, total, a_iters, D_a, D_b, Lmin, Lmax):
+    """The HMC draws of `split_hmc` in the order the port asks for them:
+    for each outer iteration, a_iters A updates then one B update; `keys`
+    the chains' keys as the JAX sampler receives them."""
+    per_chain = []
+    for key in keys:
+        outs = []
+        for k in jax.random.split(key, total):
+            k_a, k_b = jax.random.split(k)
+            outs += [(ka, D_a) for ka in jax.random.split(k_a, a_iters)] + [(k_b, D_b)]
+        per_chain.append(outs)
+    return [hmc_draws([pc[i][0] for pc in per_chain], per_chain[0][i][1], Lmin, Lmax)
+            for i in range(len(per_chain[0]))]
+
+
+def ess_draws(keys, n_iter, D, max_shrink):
+    """(starts, shrinks) of `ess`'s draws: for each iteration, (z (C, D),
+    u (C,), angle (C,)) and the chains' shrink uniforms (C, max_shrink), as
+    split(key, 4) and the shrink loop's split(k) make them."""
+    starts, shrinks = [], []
+    per = [jax.random.split(k, n_iter) for k in keys]
+    for i in range(n_iter):
+        z, u, th, sh = [], [], [], []
+        for ks in per:
+            k_nu, k_u, k_theta, k = jax.random.split(ks[i], 4)
+            z.append(np.asarray(jax.random.normal(k_nu, (D,), dtype=jnp.float64)))
+            u.append(float(jax.random.uniform(k_u, (), dtype=jnp.float64)))
+            th.append(float(jax.random.uniform(k_theta, (), dtype=jnp.float64, minval=0.0,
+                                               maxval=2.0 * jnp.pi)))
+            row = []
+            for _ in range(max_shrink):
+                k, ku = jax.random.split(k)
+                row.append(float(jax.random.uniform(ku, (), dtype=jnp.float64)))
+            sh.append(row)
+        starts.append((np.stack(z), np.asarray(u), np.asarray(th)))
+        shrinks.append(np.asarray(sh))
+    return starts, shrinks
+
+
+class Replay(RandomStream):
+    """A RandomStream that hands out given draws, in order."""
+
+    def __init__(self, hmc=(), ess_starts=(), ess_shrinks=(), normal=()):
+        super().__init__(None)
+        self._hmc, self._starts = list(hmc), list(ess_starts)
+        self._shrinks, self._normal = list(ess_shrinks), list(normal)
+        self._round = 0
+
+    @staticmethod
+    def _t(a, like, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype or like.dtype, device=like.device)
+
+    def normal(self, shape, like):
+        out = self._t(self._normal.pop(0), like)
+        assert tuple(out.shape) == tuple(shape)
+        return out
+
+    def hmc(self, C, D, Lmin, Lmax, like):
+        z, L, u = self._hmc.pop(0)
+        assert z.shape == (C, D)
+        return self._t(z, like), self._t(L, like, torch.int64), self._t(u, like)
+
+    def ess_start(self, C, D, like):
+        self._round = 0
+        self._rows = self._shrinks.pop(0)
+        return tuple(self._t(a, like) for a in self._starts.pop(0))
+
+    def ess_shrink(self, C, like):
+        self._round += 1
+        return self._t(self._rows[:, self._round - 1], like)
+
+    def exhausted(self):
+        return not (self._hmc or self._starts or self._normal)

@@ -207,8 +207,9 @@ def test_gp_factory_and_default_device():
     X, y = _small_data()
     m = gt.GP(X, y, kernel=gt.SE(0.0, 0.0), device="cpu")
     assert isinstance(m, gt.GPE) and m.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        gt.GP(X, y, lik=object(), device="cpu")
+    ma = gt.GP(X, (y > 0).astype(float), kernel=gt.SE(0.0, 0.0), lik=gt.BernLik(),
+               device="cpu")
+    assert isinstance(ma, gt.GPA) and ma.device.type == "cpu"
     if torch.cuda.is_available():
         assert gt.GPE(X, y).device.type == "cuda"
     else:

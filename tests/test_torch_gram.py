@@ -135,7 +135,7 @@ def test_gram_op_counts_no_launch_on_cpu_and_launcher_refuses_cpu():
 
 
 @pytest.mark.parametrize("bad", ["dtype", "mixed", "ndim", "strided", "features",
-                                 "params", "family"])
+                                 "params", "family", "chains"])
 def test_launcher_validates_its_inputs(bad):
     X = torch.as_tensor(_X(20, 3))
     X2 = torch.as_tensor(_X(5, 3))
@@ -146,7 +146,7 @@ def test_launcher_validates_its_inputs(bad):
     elif bad == "mixed":
         X2 = X2.double()
     elif bad == "ndim":
-        X = X[None]
+        X = X[None, None]
     elif bad == "strided":
         X = torch.as_tensor(_X(20, 6))[:, ::2]
     elif bad == "features":
@@ -155,5 +155,77 @@ def test_launcher_validates_its_inputs(bad):
         p = torch.zeros(2)
     elif bad == "family":
         fam = 6
+    elif bad == "chains":
+        p, X = torch.zeros((3, 3)), X.expand(2, 20, 3).contiguous()
     with pytest.raises((TypeError, ValueError)):
         gram_op.launch_gram(fam, p, X, X2)
+
+
+def test_launchers_take_a_batch_of_chains_and_refuse_the_cpu():
+    """Batched operands pass the launchers' checks (p (C, 3), X1 and X2
+    shared or (C, n, d), the cotangent (C, n1, n2)) and are refused only for
+    lying on the CPU; a 2-D cotangent with batched operands is not."""
+    X, X2 = torch.as_tensor(_X(20, 3)), torch.as_tensor(_X(5, 3))
+    P = torch.zeros((4, 3))
+    for A, B in ((X, None), (X.expand(4, 20, 3).contiguous(), None), (X, X2),
+                 (X.expand(4, 20, 3).contiguous(), X2)):
+        assert gram_op.chain_count(P, A, B) == 4
+        with pytest.raises(ValueError, match="CUDA"):
+            gram_op.launch_gram(gram_op.SE, P, A, B)
+        G = torch.zeros((4, 20, 20 if B is None else 5))
+        with pytest.raises(ValueError, match="CUDA"):
+            gram_op.launch_gram_vjp(gram_op.SE, P, A, B, G)
+        with pytest.raises(ValueError, match="cotangent"):
+            gram_op.launch_gram_vjp(gram_op.SE, P, A, B, G[0].contiguous())
+    assert gram_op.chain_count(torch.zeros(3), X) is None
+
+
+def _spy(monkeypatch):
+    """Record the batched calls (those with a chain dimension) of the plain
+    versions that the op's forward and backward run on CPU tensors."""
+    calls = []
+    for name in ("gram_plain", "gram_vjp_plain"):
+        real = getattr(gram_op, name)
+
+        def spy(family, p, X1, X2, *rest, real=real, name=name):
+            if gram_op.chain_count(p, X1, X2, rest[0] if rest else None) is not None:
+                calls.append((name, tuple(p.shape), tuple(X1.shape)))
+            return real(family, p, X1, X2, *rest)
+
+        monkeypatch.setattr(gram_op, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("ard", [False, True], ids=["iso", "ard"])
+@pytest.mark.parametrize("sym", [True, False], ids=["sym", "cross"])
+def test_vmap_over_chains_is_one_batched_call_equal_to_a_loop(monkeypatch, ard, sym):
+    """`torch.func.vmap` of the gram, and of its gradient, over 5 chains'
+    flat kernel parameters goes through the op's vmap rules: one batched
+    forward and one batched backward (an iso kernel's X shared, an ARD
+    kernel's scaled per chain), equal to a loop over the chains."""
+    rng = np.random.RandomState(8)
+    kern = gt.Matern(1.5, np.array([0.1, -0.2, 0.3]), 0.1) if ard else gt.RQ(0.1, 0.2, -0.3)
+    X = torch.as_tensor(rng.randn(40, 3))
+    X2 = None if sym else torch.as_tensor(rng.randn(17, 3))
+    W = torch.as_tensor(rng.randn(40, 40 if sym else 17))
+    thetas = kern.flat_params() + 0.1 * torch.as_tensor(rng.randn(5, kern.n_params))
+
+    def f(t):
+        return (W * kern.with_flat_params(t).gram(X, X2)).sum()
+
+    calls = _spy(monkeypatch)
+    K = torch.func.vmap(lambda t: kern.with_flat_params(t).gram(X, X2))(thetas)
+    assert calls == [("gram_plain", (5, 3), (5, 40, 3) if ard else (40, 3))]
+    calls.clear()
+    g, v = torch.func.vmap(torch.func.grad_and_value(f))(thetas)
+    assert [c[0] for c in calls] == ["gram_plain", "gram_vjp_plain"]
+    for c in range(5):
+        kc = kern.with_flat_params(thetas[c])
+        np.testing.assert_allclose(K[c].numpy(), kc.gram(X, X2).numpy(), rtol=1e-14, atol=0)
+        gc, vc = torch.func.grad_and_value(f)(thetas[c])
+        np.testing.assert_allclose(g[c].numpy(), gc.numpy(), rtol=1e-12, atol=1e-14)
+        assert float(v[c]) == pytest.approx(float(vc), rel=1e-14)
+    # and the gradient of a vmapped function (the rules under autograd)
+    t = thetas.clone().requires_grad_()
+    (gb,) = torch.autograd.grad(torch.func.vmap(f)(t).sum(), t)
+    np.testing.assert_allclose(gb.numpy(), g.numpy(), rtol=1e-12, atol=1e-14)

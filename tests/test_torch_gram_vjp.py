@@ -136,29 +136,32 @@ def tile_of(t, sym, nb2):
 
 
 @pytest.mark.parametrize("n", [1, 63, 64, 65, 77, 300])
-def test_forward_tile_walk_writes_every_output_once(n):
+@pytest.mark.parametrize("chains", [1, 3])
+def test_forward_tile_walk_writes_every_output_once(n, chains):
     """The lower-triangle walk of a symmetric gram, each off-diagonal tile
-    also writing its mirror, and the full walk of a cross gram, shared out
-    over persistent grids of 1, 7 and 1056 blocks: every output of a ragged
-    n written exactly once."""
+    also writing its mirror, and the full walk of a cross gram, over the
+    (chain, tile) pairs u = c ntiles + t of a batch of chains, shared out
+    over persistent grids of 1, 7 and 1056 blocks: every output of every
+    chain's ragged n written exactly once."""
     nb = -(-n // gram_op.TILE)
     for sym, (n1, n2) in ((True, (n, n)), (False, (n, 77))):
         nb2 = -(-n2 // gram_op.TILE)
         ntiles = gram_op.tile_count(n1, n2, sym)
         assert ntiles == (nb * (nb + 1) // 2 if sym else nb * nb2)
         for grid in (1, 7, 1056):
-            writes = np.zeros((n1, n2), dtype=int)
+            writes = np.zeros((chains, n1, n2), dtype=int)
             seen = []
-            for b in range(min(grid, ntiles)):
-                for t in range(b, ntiles, grid):
+            for b in range(min(grid, chains * ntiles)):
+                for u in range(b, chains * ntiles, grid):
+                    c, t = divmod(u, ntiles)
                     bi, bj = tile_of(t, sym, nb2)
-                    seen.append(t)
+                    seen.append(u)
                     assert 0 <= bj < nb2 and (bj <= bi or not sym)
-                    r, c = slice(64 * bi, 64 * bi + 64), slice(64 * bj, 64 * bj + 64)
-                    writes[r, c] += 1
+                    r, cs = slice(64 * bi, 64 * bi + 64), slice(64 * bj, 64 * bj + 64)
+                    writes[c, r, cs] += 1
                     if sym and bi != bj:
-                        writes[c, r] += 1
-            assert sorted(seen) == list(range(ntiles))
+                        writes[c, cs, r] += 1
+            assert sorted(seen) == list(range(chains * ntiles))
             assert (writes == 1).all()
 
 
@@ -184,59 +187,91 @@ def _sum4(terms):
     return (a[0] + a[1]) + (a[2] + a[3])
 
 
-def _vjp_tile_model(family, p, X1, X2, G, grid, needs):
-    """gram_vjp_kernel and gram_vjp_reduce on the CPU, tile by tile: each
-    block adds its tiles' hyperparameter terms in walk order; each tile
-    writes its row and column partials (x sum W - W x); the reduction adds
-    dp over blocks in block order and each row's partials in tile order,
-    four interleaved sums at a time (`sum4`)."""
+def walked(b, c, ntiles, grid):
+    """gram_vjp_reduce's `walked`: whether block b of a walk over `grid`
+    blocks (b, b + grid, ...) meets one of chain c's pairs c ntiles ..
+    (c + 1) ntiles - 1."""
+    return (b - c * ntiles) % grid < ntiles
+
+
+def _vjp_batched_model(family, P, A, B, G, grid, needs):
+    """gram_vjp_kernel and gram_vjp_reduce on the CPU over a batch of chains
+    (G (C, n1, n2); P, A and B with a chain dimension where they are per
+    chain), tile by tile: each block walks the (chain, tile) pairs
+    u = c ntiles + t in its order, adds a chain's hyperparameter terms and
+    writes them to part_dp[chain][block] when its walk moves to another
+    chain; each pair writes its row and column partials (x sum W - W x);
+    the reduction adds a chain's dp over the blocks that walked it in block
+    order, and each row's partials in tile order, four interleaved sums at
+    a time (`sum4`)."""
     T = gram_op.TILE
-    sym = X2 is None
-    Xb = X1 if sym else X2
-    n1, n2, d = X1.shape[0], Xb.shape[0], X1.shape[1]
+    sym = B is None
+    C = G.shape[0]
+    at = lambda t, nd, c: t[c] if t.ndim == nd else t  # noqa: E731
+    n1, d = A.shape[-2:]
+    n2 = n1 if sym else B.shape[-2]
     nb1, nb2 = -(-n1 // T), -(-n2 // T)
     pad = lambda X, nb: torch.cat([X, X.new_zeros((nb * T - X.shape[0], d))])  # noqa: E731
-    P1, P2 = pad(X1, nb1), pad(Xb, nb2)
-    Gp = G.new_zeros((nb1 * T, nb2 * T))
-    Gp[:n1, :n2] = G
     ntiles = gram_op.tile_count(n1, n2, sym)
-    rows, cols, part_dp = {}, {}, []
-    for b in range(min(grid, ntiles)):
-        acc = torch.zeros(3, dtype=X1.dtype)
-        for t in range(b, ntiles, grid):
+    grid = min(grid, C * ntiles)
+    rows, cols, part_dp = {}, {}, {}
+    for b in range(grid):
+        cur = None
+        for u in range(b, C * ntiles, grid):
+            c, t = divmod(u, ntiles)
+            if c != cur:
+                cur = c
+                part_dp[c, b] = torch.zeros(3, dtype=G.dtype)
+            p, X1 = at(P, 2, c), at(A, 3, c)
+            P1 = pad(X1, nb1)
+            P2 = P1 if sym else pad(at(B, 3, c), nb2)
+            Gp = G.new_zeros((nb1 * T, nb2 * T))
+            Gp[:n1, :n2] = G[c]
             bi, bj = tile_of(t, sym, nb2)
-            r, c = slice(T * bi, T * bi + T), slice(T * bj, T * bj + T)
-            xr, xc = P1[r], P2[c]
+            r, cs = slice(T * bi, T * bi + T), slice(T * bj, T * bj + T)
+            xr, xc = P1[r], P2[cs]
             r2 = ((xr[:, None, :] - xc[None, :, :]) ** 2).sum(-1)
-            S = Gp[r, c] + (Gp[c, r].T if sym and bi != bj else 0)
+            S = Gp[r, cs] + (Gp[cs, r].T if sym and bi != bj else 0)
             pinned = torch.zeros((T, T), dtype=torch.bool)
             if sym and bi == bj:
                 pinned = torch.eye(T, dtype=torch.bool)
             r2 = torch.where(pinned, torch.zeros_like(r2), r2)
             K, dll, dex, dr2 = gram_op.gram_derivs(family, p, r2)
-            acc += torch.stack([2 * (S * K).sum(), (S * dll).sum(), (S * dex).sum()])
+            part_dp[c, b] += torch.stack([2 * (S * K).sum(), (S * dll).sum(), (S * dex).sum()])
             W = torch.where(pinned, torch.zeros_like(S), 2 * S * dr2)
-            rows[t] = xr * W.sum(1, keepdim=True) - W @ xc
-            cols[t] = xc * W.sum(0)[:, None] - W.T @ xr
-        part_dp.append(acc)
-    dp = sum(part_dp[1:], part_dp[0]) if needs[0] else None
+            rows[u] = xr * W.sum(1, keepdim=True) - W @ xc
+            cols[u] = xc * W.sum(0)[:, None] - W.T @ xr
+    # the reduction reads a partial exactly where the kernel wrote one
+    assert set(part_dp) == {(c, b) for c in range(C) for b in range(grid)
+                            if walked(b, c, ntiles, grid)}
+    dp = (torch.stack([sum((part_dp[c, b] for b in range(grid) if (c, b) in part_dp),
+                           torch.zeros(3, dtype=G.dtype)) for c in range(C)])
+          if needs[0] else None)
     dX1 = dX2 = None
     if needs[1]:
-        parts = []
-        for b in range(nb1):
-            if sym:
-                tri = b * (b + 1) // 2
-                parts.append(_sum4([rows[tri + bj] for bj in range(b + 1)])
-                             + _sum4([cols[bi * (bi + 1) // 2 + b] for bi in range(b, nb1)]))
-            else:
-                parts.append(_sum4([rows[b * nb2 + bj] for bj in range(nb2)]))
-        dX1 = torch.cat(parts)[:n1]
+        out = []
+        for c in range(C):
+            u0, parts = c * ntiles, []
+            for b in range(nb1):
+                if sym:
+                    tri = u0 + b * (b + 1) // 2
+                    parts.append(_sum4([rows[tri + bj] for bj in range(b + 1)])
+                                 + _sum4([cols[u0 + bi * (bi + 1) // 2 + b]
+                                          for bi in range(b, nb1)]))
+                else:
+                    parts.append(_sum4([rows[u0 + b * nb2 + bj] for bj in range(nb2)]))
+            out.append(torch.cat(parts)[:n1])
+        dX1 = torch.stack(out)
     if needs[2] and not sym:
-        parts = []
-        for b in range(nb2):
-            parts.append(_sum4([cols[bi * nb2 + b] for bi in range(nb1)]))
-        dX2 = torch.cat(parts)[:n2]
+        dX2 = torch.stack([torch.cat([_sum4([cols[c * ntiles + bi * nb2 + b] for bi in range(nb1)])
+                                      for b in range(nb2)])[:n2] for c in range(C)])
     return dp, dX1, dX2
+
+
+def _vjp_tile_model(family, p, X1, X2, G, grid, needs):
+    """The model above for one gram: one chain, nothing batched but G."""
+    return tuple(None if t is None else t[0]
+                 for t in _vjp_batched_model(family, p, X1, X2, G[None], grid, needs))
 
 
 @pytest.mark.parametrize("family", range(gram_op.PERIODIC + 1))
@@ -260,15 +295,58 @@ def test_vjp_tile_model_matches_the_plain_vjp(family, sym):
                                            atol=1e-12 * float(b.abs().max()))
 
 
+@pytest.mark.parametrize("family", [gram_op.SE, gram_op.MAT32, gram_op.RQ, gram_op.PERIODIC])
+@pytest.mark.parametrize("sym", [True, False], ids=["sym", "cross"])
+@pytest.mark.parametrize("ard", [False, True], ids=["shared_X", "per_chain_X"])
+def test_batched_vjp_model_matches_the_batched_plain_vjp(family, sym, ard):
+    """The kernel's algorithm over 3 chains (per-chain hyperparameters; X
+    shared, or one X a chain as ARD gives), on grids of 1, 2, 5 and 64
+    blocks (at 64, blocks that never meet a chain leave no partial for it):
+    the vmapped plain VJP to f64 rounding, chain by chain."""
+    rng = np.random.RandomState(10 + family)
+    C = 3
+    P = torch.as_tensor(0.2 * rng.randn(C, 3))
+    A = torch.as_tensor(rng.randn(C, 130, 2) if ard else rng.randn(130, 2))
+    B = None if sym else torch.as_tensor(rng.randn(C, 70, 2) if ard else rng.randn(70, 2))
+    G = torch.as_tensor(rng.randn(C, 130, 130 if sym else 70))
+    ref = gram_op.gram_vjp_plain(family, P, A, B, G)
+    for c in range(C):  # the batched plain VJP is the loop over chains
+        one = gram_op.gram_vjp_plain(family, P[c], A[c] if ard else A,
+                                     None if sym else (B[c] if ard else B), G[c])
+        for a, b in zip(ref, one):
+            if a is not None:
+                np.testing.assert_allclose(a[c].numpy(), b.numpy(), rtol=1e-14, atol=1e-14)
+    for grid in (1, 2, 5, 64):
+        got = _vjp_batched_model(family, P, A, B, G, grid, (True, True, True))
+        for a, b in zip(got, ref):
+            assert (a is None) == (b is None)
+            if a is not None:
+                np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-12,
+                                           atol=1e-12 * float(b.abs().max()))
+
+
+def test_walked_finds_every_block_of_a_chain():
+    """`walked` against the walk itself, for tile counts below, at and above
+    the grid."""
+    for ntiles, C, grid in ((10, 128, 660), (10, 3, 7), (1128, 2, 660), (3, 5, 64), (1, 4, 2)):
+        met = {(u // ntiles, b) for b in range(min(grid, C * ntiles))
+               for u in range(b, C * ntiles, min(grid, C * ntiles))}
+        g = min(grid, C * ntiles)
+        assert met == {(c, b) for c in range(C) for b in range(g) if walked(b, c, ntiles, g)}
+
+
 def test_vjp_scratch_holds_the_partials():
     """The scratch the wrapper allocates holds every block's dp partial and
-    the 64 x d partials of each tile for each side asked for."""
+    the 64 x d partials of each tile for each side asked for, for each
+    chain."""
     f = gram_op.vjp_scratch_elems
     assert f(3000, 3000, 10, True, False, False, 132) == 3 * 8 * 132
     tiles = 47 * 48 // 2
     assert f(3000, 3000, 10, True, True, False, 132) == 3 * 8 * 132 + 2 * tiles * 640
     assert f(300, 77, 10, False, True, True, 132) == 3 * 8 * 132 + 2 * 5 * 2 * 640
     assert f(300, 77, 10, False, False, True, 132) == 3 * 8 * 132 + 5 * 2 * 640
+    assert f(200, 200, 5, True, True, False, 132, chains=128) == 128 * (3 * 8 * 132
+                                                                        + 2 * 10 * 320)
 
 
 def test_backward_on_the_cpu_is_the_plain_vjp_and_launches_nothing(monkeypatch):

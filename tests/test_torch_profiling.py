@@ -68,6 +68,23 @@ def test_device_ms_by_name_counts_calls_and_sees_no_card_on_cpu():
         assert kernels == {} and ops == {}  # no device time without a card
 
 
+def test_device_profile_ranks_and_sums_kernels_alone():
+    calls = []
+    x = torch.ones((16, 16))
+
+    def fn():
+        calls.append(1)
+        return x @ x
+
+    busy, kernels, ops = profiling.device_profile(fn, reps=4, top=3)
+    assert len(calls) == 4
+    assert len(kernels) <= 3 and len(ops) <= 3
+    assert busy >= sum(ms for _, ms, _ in kernels) - 1e-9  # the top kernels, of all
+    assert [ms for _, ms, _ in kernels] == sorted((ms for _, ms, _ in kernels), reverse=True)
+    if not torch.cuda.is_available():
+        assert (busy, kernels, ops) == (0, [], [])
+
+
 def test_live_device_bytes_nonnegative():
     x = torch.ones((128, 128))
     assert profiling.live_device_bytes() >= 0

@@ -65,8 +65,32 @@ Phases, each of which exits non-zero on the first failure:
  15. examples/classification.py's model through the port: train accuracy
      >= 0.75;
  16. perf/gpa_study.py cut to 40 outer iterations: one outer iteration's
-     launches, host enqueue, CUDA-event and device-busy time, ESS, R-hat.
-Phase 8 also times the batched kernels (C = 128, n = 200) for the table.
+     launches, host enqueue, CUDA-event and device-busy time, ESS, R-hat;
+ 17. FITC at N = 10 000 (configuration #4's data, perf/fitc_study.py): mll
+     and gradient in f32 on the card against f32 and f64 on the CPU and in
+     f64 on the card, 2 + 2 launches, prediction;
+ 18. configuration #4 at full width (N = 100 000, m = 512, d = 4, f32): the
+     gram kernels against their plain versions at the cross shape 512 x
+     100 000, then 3 Adam steps of perf/fitc_study.py (2 + 2 launches a
+     step, a finite and falling loss);
+ 19. FSA at N = 10 000 over 23 ragged blocks: the batched block grams (one
+     launch, parameters shared) against their plain versions, mll and
+     gradient (3 + 3 launches) and prediction with blockindpred against
+     f64 on the card and on the CPU;
+ 20. configuration #3, Poisson VI at n = 4096 (perf/vi_study.py): the ELBO
+     rises over 150 Adam steps (1 gram launch, no VJP), the rate follows
+     the counts, the predictive in f32 against f64;
+ 21. cross-validation on the headline: logp_LOO and dlogp_LOO (1 + 1
+     launches), logp_CVfold and dlogp_CVfold over 10 equal folds, f32 and
+     f64 on the card against f64 on the CPU;
+ 22. optimize(method="optax", maxiter=10) on the headline: finite, no lower
+     than the start, 1 + 1 launches an evaluation;
+ 23. the notebook anchors (perf/anchors.py): robust regression, Poisson MCMC
+     against VI, Mauna Loa by both optimizers, the sparse golden mlls and
+     the regression quickstart.
+Phase 8 also times the batched kernels (C = 128, n = 200) and
+configuration #4's cross gram (512 x 100 000, perf/fitc_study.py) for the
+table.
 The kernel launch counts are set to 0 before each main-path call and read
 after it: one evaluation launches the forward and the VJP kernel once for
 each stationary gram (once for every chain of a vmapped batch), prediction
@@ -95,7 +119,8 @@ from gaussianprocesses_jl_tpu_torch.ops.linalg import (
     tri_syrk_lower,
 )
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
-from gaussianprocesses_jl_tpu_torch.perf import gpa_study, gram_study, single_parts
+from gaussianprocesses_jl_tpu_torch.perf import (anchors, fitc_study, gpa_study, gram_study,
+                                                 single_parts, vi_study)
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
     HBM_BYTES_PER_S,
@@ -998,6 +1023,310 @@ def phase_study_times(dev, card) -> dict:
     return rows
 
 
+# phases 17-23: the sparse models, VI, cross-validation, the on-device
+# L-BFGS and the notebook anchors
+
+def target_grad(m):
+    t, g = m.target_and_dtarget()
+    return float(t), g.double().cpu().numpy()
+
+
+def check_model(name, m32, refs):
+    """m32's target and gradient on the card (its launches counted) against
+    each reference model in `refs`: [(label, model, value rtol, gradient
+    atol over max|g|)]. Returns the launches."""
+    (t32, g32), n = launches(lambda: target_grad(m32))
+    print(f"{name}: f32 card target {t32:.6f}, {n[0]} gram and {n[1]} gram_vjp launches")
+    for label, m, rtol, gtol in refs:
+        t, g = target_grad(m)
+        check_close(f"{name} {label} target", t32, t, rtol)
+        check_close(f"{name} {label} gradient", g32, g, 0.0, gtol * float(np.abs(g).max()))
+    return n
+
+
+def phase_fitc_10k(dev) -> tuple:
+    """Phase 17: FITC at N = 10 000, m = 512, d = 4 (configuration #4's data
+    cut in N). Tolerances from `python -m ...perf.fitc_study --f32-gap` (CPU,
+    four states): the f32 model stands up to 5.2e-2 (mll, relative) and
+    2.0e-2 max|g| from f64, most of it its relative jitter on Kuu (1e-4
+    against 1e-10), so f32 card vs f64 CPU holds at rtol 0.1 and 4e-2
+    max|g|; f32 rounding alone (the rows permuted) moves them by 1.0e-6 and
+    4.4e-6, so f32 card vs f32 CPU holds at 1e-4 and 1e-3 max|g|; f64 card
+    vs f64 CPU at rtol 1e-9 and 1e-8 max|g|. Then predict_y at 500 points
+    (3 forward launches: K(Xu), K(Xu, X), K(Xu, Xs); no VJP). Returns the
+    launches."""
+    n = fitc_study.N_GAP
+    m32 = fitc_study.config4_model(dev, n)
+    m64c = fitc_study.config4_model("cpu", n, np.float64)
+    n_eval = check_model(f"FITC N={n}", m32, [
+        ("f32 card vs f32 CPU", fitc_study.config4_model("cpu", n), 1e-4, 1e-3),
+        ("f32 card vs f64 CPU", m64c, 0.1, 4e-2)])
+    check_f64_card(f"FITC N={n}", fitc_study.config4_model(dev, n, np.float64), m64c)
+    if n_eval != (2, 2):
+        fail(f"FITC: {n_eval} launches, expected (2, 2)")
+    Xs = np.random.RandomState(7).randn(500, fitc_study.D_FEAT).astype(np.float32)
+    (mu, var), n_pred = launches(lambda: m32.predict_y(Xs))
+    print(f"FITC predict_y at 500 points: {n_pred} launches, mean range "
+          f"[{float(mu.min()):.4f}, {float(mu.max()):.4f}], min variance {float(var.min()):.4e}")
+    if not (bool(torch.isfinite(mu).all()) and bool((var >= 0).all()) and n_pred == (3, 0)):
+        fail("FITC predict_y: non-finite, negative variance or wrong launches")
+    return tuple(a + b for a, b in zip(n_eval, n_pred))
+
+
+def check_f64_card(name, m64, m64c):
+    t, g = target_grad(m64)
+    tc, gc = target_grad(m64c)
+    check_close(f"{name} f64 card vs f64 CPU target", t, tc, 1e-9)
+    check_close(f"{name} f64 card vs f64 CPU gradient", g, gc, 1e-8,
+                1e-10 * float(np.abs(gc).max()))
+
+
+def phase_kernels_at(dev, what, fam, p, X1, X2, G) -> dict:
+    """The gram kernel and the dp-only VJP kernel against their plain versions
+    at one of the sparse path's shapes (X1 batched over blocks where it is
+    3-D, p shared), f32: the forward within atol 1e-5 sigma^2, the VJP within
+    1e-5 of its sums of magnitudes (phase 3's tolerances). Returns the
+    largest absolute differences."""
+    sig2 = float(torch.exp(2 * p[0]))
+    K = gram_op.launch_gram(fam, p, X1, X2)
+    K0 = gram_op.gram_plain(fam, p, X1, X2)
+    err = float((K - K0).abs().max())
+    needs = (True, False, False)
+    got = gram_op.launch_gram_vjp(fam, p, X1, X2, G, needs)
+    ref = gram_op.gram_vjp_plain(fam, p, X1, X2, G, needs)
+    if X1.ndim == 3:
+        scales = batched_vjp_scales(fam, p, X1, X2, G)
+    else:
+        scales = vjp_scales(fam, p, X1, X2, G)
+    verr, ratio = check_vjp(got, ref, scales, 1e-5)
+    ok = err <= 1e-5 * sig2 and ratio <= 1.0 and bool(torch.isfinite(K).all())
+    print(f"  {what}: max|K - plain| {err:.3e} (atol {1e-5 * sig2:.1e}), max|dp - plain| "
+          f"{verr:.3e} ({ratio:.3f} of tol) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"gram kernels disagree with their plain versions at {what}")
+    return {"gram": err, "gram_vjp": verr}
+
+
+N_FITC_STEPS = 3  # phase 18's Adam steps at N = 100 000
+
+
+def phase_fitc_100k(dev) -> dict:
+    """Phase 18: configuration #4 at full width. The gram kernels at the cross
+    shape against their plain versions; N_FITC_STEPS steps of
+    perf/fitc_study.py's Adam with the reject-don't-commit guard (counts set
+    to 0 before, read after: exactly 2 + 2 launches a step), each timed by
+    CUDA events, the loss finite and falling. (The cross gram's own times
+    are taken in phase 8, before phase 16's profile.)"""
+    X, _, Xu = fitc_study.config4_data()
+    f32 = dict(dtype=torch.float32, device=dev)
+    X, Xu = torch.as_tensor(X, **f32), torch.as_tensor(Xu, **f32)
+    G = torch.randn((fitc_study.M, fitc_study.N), generator=torch.Generator(device=dev)
+                    .manual_seed(18), **f32)
+    errs = phase_kernels_at(dev, f"cross gram SE {fitc_study.M} x {fitc_study.N}", gram_op.SE,
+                            torch.tensor([0.0, 0.0, 0.0], **f32), Xu, X, G)
+    del G
+    t0 = time.perf_counter()
+    trainer = fitc_study.FitcAdam(fitc_study.config4_model(dev))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    step_ms, losses = [], []
+
+    def steps():
+        for _ in range(N_FITC_STEPS):
+            loss, ms = once_ms(trainer.step)
+            losses.append(loss)
+            step_ms.append(ms)
+
+    _, n = launches(steps)
+    print(f"FITC N={fitc_study.N}: set-up {setup_s:.2f} s, losses {losses}, step ms "
+          f"{step_ms}, {n[0]} gram and {n[1]} gram_vjp launches, peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB", flush=True)
+    if n != (2 * N_FITC_STEPS, 2 * N_FITC_STEPS):
+        fail(f"FITC at N={fitc_study.N}: {n} launches, expected 2 + 2 a step")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"FITC at N={fitc_study.N}: loss not finite or not falling: {losses}")
+    return {"launches": n, "losses": losses, "step_ms": step_ms, "setup_s": setup_s,
+            "max_abs_err": errs}
+
+
+def fsa_model(device, dtype):
+    X, y, Xu = fitc_study.config4_data(fitc_study.N_GAP)
+    # 23 ragged blocks (434 or 435 points) of the points ordered along x_1
+    blocks = np.array_split(np.argsort(X[:, 0], kind="stable"), 23)
+    return gp.FSA(X.astype(dtype), Xu.astype(dtype), [b.tolist() for b in blocks],
+                  y.astype(dtype), kernel=gp.SE(0.0, 0.0), lognoise=-1.0, device=device)
+
+
+def phase_fsa(dev) -> tuple:
+    """Phase 19: FSA at N = 10 000 (configuration #4's data and inducing
+    rows) over 23 ragged blocks along x_1. The batched block grams (X
+    (23, 435, 4), p shared) against their plain versions; the mll and
+    gradient: f32 card against f32 CPU (rtol 1e-4, 1e-3 max|g|, phase 17's
+    rounding tolerances) and f64 card against f64 CPU (rtol 1e-9, 1e-8),
+    3 + 3 launches (K(Xu), K(Xu, X), the blocks in one); predict_f with
+    blockindpred at 400 points against f64 on the CPU (mean atol 1e-9,
+    variance atol 1e-9) and in f32 finite, 5 forward launches (the three of
+    the factor, K(Xu, Xs) and the blocks' cross grams in one). Returns the
+    launches and the kernel errors."""
+    m32 = fsa_model(dev, np.float32)
+    cs = m32.covstrat
+    Xb = m32.x[cs.block_idx.reshape(-1)].reshape(*cs.block_idx.shape, m32.dim).contiguous()
+    G = torch.randn(Xb.shape[:2] + Xb.shape[1:2], generator=torch.Generator(device=dev)
+                    .manual_seed(19), dtype=torch.float32, device=dev)
+    errs = phase_kernels_at(dev, f"FSA block grams {tuple(Xb.shape)}", gram_op.SE,
+                            torch.zeros(3, dtype=torch.float32, device=dev), Xb, None, G)
+    n_eval = check_model("FSA N=10000", m32, [
+        ("f32 card vs f32 CPU", fsa_model("cpu", np.float32), 1e-4, 1e-3)])
+    m64c = fsa_model("cpu", np.float64)
+    m64 = fsa_model(dev, np.float64)
+    check_f64_card("FSA N=10000", m64, m64c)
+    if n_eval != (3, 3):
+        fail(f"FSA: {n_eval} launches, expected (3, 3)")
+    Xs = np.random.RandomState(19).randn(400, fitc_study.D_FEAT)
+    order = np.argsort(Xs[:, 0], kind="stable")
+    bip = [b.tolist() for b in np.array_split(order, 23)]
+    (mu32, var32), n_pred = launches(lambda: m32.predict_f(Xs.astype(np.float32),
+                                                           blockindpred=bip))
+    mu64, var64 = m64.predict_f(Xs, blockindpred=bip)
+    mu_c, var_c = m64c.predict_f(Xs, blockindpred=bip)
+    check_close("FSA blockindpred f64 card vs CPU mean", mu64.cpu(), mu_c, 0.0, 1e-9)
+    check_close("FSA blockindpred f64 card vs CPU variance", var64.cpu(), var_c, 0.0, 1e-9)
+    print(f"FSA predict_f with blockindpred, f32: {n_pred} launches, max|mu32 - mu64| "
+          f"{float((mu32.double() - mu64).abs().max()):.3e}")
+    if not (bool(torch.isfinite(mu32).all()) and bool(torch.isfinite(var32).all())
+            and n_pred == (5, 0)):
+        fail("FSA predict_f: non-finite in f32 or not 5 forward launches")
+    return tuple(a + b for a, b in zip(n_eval, n_pred)), errs
+
+
+def phase_vi(dev) -> dict:
+    """Phase 20: configuration #3 (perf/vi_study.py): 150 Adam steps on the
+    card in f32 must raise the ELBO with exactly 1 gram launch and no VJP;
+    the rate exp(m + v/2) must correlate with the counts above 0.5 (the
+    Poisson anchor's bar); the predictive at the training points, f32 and
+    f64 on the card from the same Q (2 + 2 forward launches), must be
+    finite, and its f32-to-f64 distance is printed: the example warns the
+    f32 triangular solves are fragile at this n (on the CPU, `vi_study
+    --f32-gap`, the f32 mean stood 2.2e2 of max|mu| away)."""
+    out = vi_study.run(dev)
+    ok = (out["elbo"] > out["elbo0"] and out["fit_launches"] == (1, 0)
+          and out["predict_launches"] == (4, 0) and out["rate_corr"] > 0.5
+          and out["predictive_f32_vs_f64"]["finite"])
+    if not ok:
+        fail(f"VI at n={out['n']}: {out}")
+    return out
+
+
+def phase_cv(dev) -> tuple:
+    """Phase 21: cross-validation on the headline (SE, n = 3000, d = 10):
+    logp_LOO, dlogp_LOO (exactly 1 + 1 launches), logp_CVfold and
+    dlogp_CVfold over 10 equal folds, f32 on the card against f64 on the
+    card (value rtol 1e-4, gradient atol 1e-3 max|g|; on the CPU the f32
+    model stood 2.0e-7 and 7.4e-7 from f64) and f64 on the card against f64
+    on the CPU (rtol 1e-9, gradient 1e-8 with atol 1e-10 max|g|). Returns
+    the launches of the f32 calls."""
+    rng = np.random.RandomState(42)
+    Xh, yh = rng.randn(N_HEAD, D), rng.randn(N_HEAD)
+    folds = [list(range(i * N_HEAD // 10, (i + 1) * N_HEAD // 10)) for i in range(10)]
+
+    def make(dtype, device):
+        return gp.GPE(Xh.astype(dtype), yh.astype(dtype), gp.MeanZero(), gp.SE(0.0, 0.0),
+                      lognoise=-1.0, device=device)
+
+    calls = {"logp_LOO": lambda m: gp.logp_LOO(m), "dlogp_LOO": lambda m: gp.dlogp_LOO(m),
+             "logp_CVfold": lambda m: gp.logp_CVfold(m, folds),
+             "dlogp_CVfold": lambda m: gp.dlogp_CVfold(m, folds)}
+    m32, m64, m64c = make(np.float32, dev), make(np.float64, dev), make(np.float64, "cpu")
+    total = [0, 0]
+    for name, fn in calls.items():
+        v32, n = launches(lambda: fn(m32))
+        v64, vc = fn(m64).cpu().numpy(), fn(m64c).numpy()
+        print(f"{name}: f32 card {np.round(v32.cpu().numpy(), 4).tolist()}, {n[0]} gram and "
+              f"{n[1]} gram_vjp launches")
+        grad = name.startswith("d")
+        scale = float(np.abs(vc).max())
+        check_close(f"{name} f32 card vs f64 card", v32.cpu(), v64, 0.0 if grad else 1e-4,
+                    1e-3 * scale if grad else 0.0)
+        check_close(f"{name} f64 card vs f64 CPU", v64, vc, 1e-9 if not grad else 1e-8,
+                    1e-10 * scale if grad else 0.0)
+        if name == "dlogp_LOO" and n != (1, 1):
+            fail(f"dlogp_LOO: {n} launches, expected (1, 1)")
+        total = [a + b for a, b in zip(total, n)]
+    return tuple(total)
+
+
+def phase_optax(dev) -> tuple:
+    """Phase 22: optimize(method="optax", maxiter=10) on the headline in f32:
+    the target finite and no lower than at the start, and 1 + 1 launches for
+    each evaluation the loop and its line search made."""
+    rng = np.random.RandomState(42)
+    m = gp.GPE(rng.randn(N_HEAD, D).astype(np.float32), rng.randn(N_HEAD).astype(np.float32),
+               gp.MeanZero(), gp.SE(0.0, 0.0), lognoise=-1.0, device=dev)
+    t_start = float(m.target)
+    t0 = time.perf_counter()
+    res, n = launches(lambda: m.optimize(method="optax", maxiter=10))
+    secs = time.perf_counter() - t0
+    t_end = float(m.target)
+    evals = int(res.message.split()[0])
+    print(f"optimize(method='optax', maxiter=10): target {t_start:.6f} -> {t_end:.6f}, "
+          f"{res.n_iter} iterations, {res.message}, {n[0]} gram and {n[1]} gram_vjp launches, "
+          f"{secs:.3f} s")
+    if not (np.isfinite(t_end) and t_end >= t_start and n == (evals, evals)):
+        fail("optimize(method='optax'): not finite, lower than the start, or not 1 + 1 "
+             "launches an evaluation")
+    return n
+
+
+# the anchors' sampler depths, cut to keep the script inside its time
+# (PERF.md §4): robust regression and Poisson HMC from the examples' 500
+# to 250 iterations (70 s each at 500), the quickstart from its parity
+# test's 200 to 100; Poisson's vi (300) and Mauna Loa (maxiter=200) not cut
+ANCHOR_ITERS = {"robust": 250, "poisson": 250, "regression": 100}
+
+
+def phase_anchors(dev) -> dict:
+    """Phase 23: the notebook anchors (perf/anchors.py) on the card, f32 but
+    Mauna Loa and the sparse pins, in f64 (the Mauna Loa gram does not
+    factor in f32 at its start, tests/test_torch_anchors.py): robust
+    regression (rmse_t < rmse_g and < 0.15), Poisson (both correlations >
+    0.5, within 0.15), Mauna Loa by L-BFGS-B and by method='optax' (rmse <
+    3.5), the sparse golden mlls at N = 1000 (abs 1e-3), the regression
+    quickstart (finite). Returns each anchor's numbers and the launches."""
+    out, total = {}, [0, 0]
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        res, n = launches(fn)
+        res["s"], res["launches"] = time.perf_counter() - t0, n
+        print(f"anchor {name}: {json.dumps(res)}", flush=True)
+        out[name] = res
+        total[0] += n[0]
+        total[1] += n[1]
+        return res
+
+    r = run("robust_regression", lambda: anchors.robust_regression(
+        dev, n_iter=ANCHOR_ITERS["robust"], dtype=np.float32))
+    if not (r["rmse_t"] < r["rmse_g"] and r["rmse_t"] < anchors.ROBUST_RMSE_T):
+        fail(f"robust regression anchor: {r}")
+    r = run("poisson", lambda: anchors.poisson(dev, n_iter=ANCHOR_ITERS["poisson"],
+                                               dtype=np.float32))
+    if not (min(r["corr_mcmc"], r["corr_vi"]) > anchors.POISSON_CORR
+            and abs(r["corr_mcmc"] - r["corr_vi"]) < anchors.POISSON_GAP):
+        fail(f"Poisson anchor: {r}")
+    for method in ("lbfgs", "optax"):
+        r = run(f"mauna_loa_{method}", lambda: anchors.mauna_loa(dev, method=method))
+        if not (r["rmse"] < anchors.MAUNA_LOA_RMSE and r["mll"] > r["mll0"]):
+            fail(f"Mauna Loa anchor ({method}): {r}")
+    r = run("sparse_golden", lambda: anchors.sparse_golden(dev))
+    if not r["within"]:
+        fail(f"sparse golden mlls: {r}")
+    r = run("regression", lambda: anchors.regression(dev, n_iter=ANCHOR_ITERS["regression"],
+                                                     dtype=np.float32))
+    if not r["finite"]:
+        fail(f"regression quickstart: {r}")
+    return out, tuple(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1088,6 +1417,7 @@ def main() -> int:
     # before phase 16's profile of a whole outer iteration: torch.profiler
     # saw no kernel in a later profile of the same process (PERF.md §6)
     batched_rows = gram_study.batched(dev)
+    cross_rows = fitc_study.cross_gram(dev)  # configuration #4's cross gram
 
     mh = headline(np.float32, None)
     total = time_ms(mh.target_and_dtarget)
@@ -1159,6 +1489,33 @@ def main() -> int:
     print("gpa_study: " + json.dumps(gpa))
     print(f"phase 16: {time.perf_counter() - t0:.1f} s")
 
+    # 17-23. the sparse models, VI, cross-validation, the on-device L-BFGS
+    # and the anchors
+    new_launches = []
+    for label, fn in (
+            ("17: FITC at N = 10 000", lambda: phase_fitc_10k(dev)),
+            (f"18: configuration #4, FITC at N = 100 000, card {card}",
+             lambda: phase_fitc_100k(dev)),
+            ("19: FSA with batched block grams", lambda: phase_fsa(dev)),
+            (f"20: configuration #3, Poisson VI at n = 4096, card {card}",
+             lambda: phase_vi(dev)),
+            ("21: cross-validation on the headline", lambda: phase_cv(dev)),
+            ("22: optimize(method='optax') on the headline", lambda: phase_optax(dev)),
+            ("23: the notebook anchors", lambda: phase_anchors(dev))):
+        t0 = time.perf_counter()
+        print(f"phase {label}", flush=True)
+        new_launches.append(fn())
+        print(f"phase {label.split(':')[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
+    n_fitc10k, fitc, (n_fsa, fsa_errs), vi_out, n_cv, n_optax, (anchor_rows, n_anchors) = \
+        new_launches
+    main_launches = [sum(col) for col in zip(
+        main_launches, n_fitc10k, fitc["launches"], n_fsa, vi_out["fit_launches"],
+        vi_out["predict_launches"], n_cv, n_optax, n_anchors)]
+    worst32 = max(worst32, fitc["max_abs_err"]["gram"], fsa_errs["gram"])
+    vjp_worst32 = max(vjp_worst32, fitc["max_abs_err"]["gram_vjp"], fsa_errs["gram_vjp"])
+    print("sparse, VI and anchors: " + json.dumps({"fitc_100k": fitc, "vi": vi_out,
+                                                   "anchors": anchor_rows}))
+
     split_launches = samplers["split"]["launches"]
     fwd, vjp = gram_rows[N_HEAD], vjp_rows["SE dp"]
     table = {"kernels": [{
@@ -1179,6 +1536,8 @@ def main() -> int:
         "by_n": gram_rows,
         "batched": {**batched_rows["forward"], "max_abs_err": batched_worst["gram"],
                     "launches": split_launches[0], "launches_per_outer_iteration": 17},
+        "cross_512x100000": {**cross_rows["gram"], "launches": fitc["launches"][0] // 2,
+                             "max_abs_err": fitc["max_abs_err"]["gram"]},
     }, {
         "name": "gram_vjp",
         "route": "cuda",
@@ -1199,6 +1558,8 @@ def main() -> int:
         "batched": {**batched_rows["gram_vjp"], "max_abs_err": batched_worst["gram_vjp"],
                     "max_err_over_tol": batched_worst["vjp_ratio"],
                     "launches": split_launches[1], "launches_per_outer_iteration": 16},
+        "cross_512x100000": {**cross_rows["gram_vjp"], "launches": fitc["launches"][1] // 2,
+                             "max_abs_err": fitc["max_abs_err"]["gram_vjp"]},
     }]}
     study_src = {
         "se_gram_study": ("csrc/gram.cu", "perf/pallas_cholesky_study.py:102"),

@@ -4,9 +4,11 @@ and an NVIDIA H100.
 The port of `gaussianprocesses_jl_tpu` (JAX on a TPU), held against it by
 the tests. It carries the exact-GP path (kernels and means with the
 flat-parameter protocol, the GPE log target and its gradient, prediction,
-the L-BFGS-B optimizer) and GPA classification: the likelihoods, the
-whitened-latent GPA model, the HMC, split-HMC and elliptical-slice samplers
-over a batch of chains, and the multi-chain ESS and R-hat. Stationary grams
+the L-BFGS-B and on-device L-BFGS optimizers), the sparse SoR, DTC, FITC
+and FSA models, analytic cross-validation, GPA classification (the
+likelihoods, the whitened-latent GPA model, the HMC, split-HMC and
+elliptical-slice samplers over a batch of chains, the multi-chain ESS and
+R-hat) and mean-field variational inference. Stationary grams
 run on hand-written CUDA kernels (`csrc/gram.cu`), one launch for every
 chain of a batch. Models run on the CUDA device unless built with
 `device="cpu"`. The Cholesky study (`perf/cholesky_study.py`) drives the
@@ -71,13 +73,32 @@ from .ops.likelihoods import (
 from .models.covariance import FullCovariance
 from .models.gpe import GPE, GP, GPEParams, noise_variance
 from .models.gpa import GPA, GPAParams
+from .models.sparse import (
+    SubsetOfRegsStrategy,
+    DeterminTrainCondStrat,
+    FullyIndepStrat,
+    FullScaleApproxStrat,
+    SoR,
+    DTC,
+    FITC,
+    FSA,
+)
 from .inference.mcmc import mcmc, ess
 from .inference.split import split_hmc, SplitHMCResult
 from .inference.optimize import optimize
+from .inference.vi import vi, elbo, Approx, vi_predict_f, vi_predict_y
+from .inference.crossvalidation import (
+    predict_LOO,
+    logp_LOO,
+    dlogp_LOO,
+    predict_CVfold,
+    logp_CVfold,
+    dlogp_CVfold,
+)
 from .inference.diagnostics import effective_sample_size, split_rhat
 from .utils import priors
 from .utils.params import Param
 from .utils.modules import Module
-from .convert import load_chains, load_flat
+from .convert import load_approx, load_chains, load_flat, load_sparse
 
 __version__ = "0.1.0"

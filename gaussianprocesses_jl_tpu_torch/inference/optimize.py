@@ -1,13 +1,19 @@
 """Type-II ML / MAP hyperparameter optimization (counterpart of
 `gaussianprocesses_jl_tpu/inference/optimize.py`).
 
-scipy's L-BFGS-B runs on the host and drives the model's value and gradient
-on the model's device, over the selected parameter blocks, with optional
-box bounds. A non-finite target (failed Cholesky) becomes a loss of 1e100
-with a zero gradient, so the line search backs off without an exception.
+Two methods over the selected parameter blocks, both reading a non-finite
+target (failed Cholesky) as a loss of 1e100 with a zero gradient, so that
+the line search backs off without an exception:
+  * 'lbfgs' (default): scipy's L-BFGS-B on the host drives the model's
+    value and gradient on the model's device, with optional box bounds;
+  * 'optax' (the JAX package's on-device optax.lbfgs loop): a
+    `torch.optim.LBFGS` loop with a strong-Wolfe line search whose
+    parameters and gradient stay on the model's device; no bounds. It
+    stops when ||g|| < tol or at maxiter. Its iterates differ from optax's.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -48,8 +54,8 @@ def optimize(gp, method: str = "lbfgs", maxiter: int = 200, tol: float = 1e-8,
     """Optimize the model's target (mll + log prior) in place.
 
     Keyword flags select parameter blocks (GPE: noise / domean / kern, with
-    noisebounds / meanbounds / kernbounds). method='optax' (the JAX
-    package's on-device L-BFGS) is not ported yet."""
+    noisebounds / meanbounds / kernbounds). method='optax' is the on-device
+    L-BFGS without bounds."""
     flag_names = gp.block_flag_names()
     flags = {n: bool(kwargs.pop(n, True)) for n in flag_names}
     bounds_map = {n: kwargs.pop(f"{n.replace('domean', 'mean')}bounds", None)
@@ -68,7 +74,9 @@ def optimize(gp, method: str = "lbfgs", maxiter: int = 200, tol: float = 1e-8,
     if method in ("lbfgs", "lbfgsb"):
         res = _scipy_lbfgsb(vg, x0, bounds, maxiter, tol, verbose)
     elif method == "optax":
-        raise NotImplementedError("method='optax' is not ported yet; use 'lbfgs'")
+        if bounds is not None:
+            raise ValueError("bounds require method='lbfgs'")
+        res = _torch_lbfgs(vg, x0, maxiter, tol)
     else:
         raise ValueError(f"unknown method {method!r}")
 
@@ -97,3 +105,39 @@ def _scipy_lbfgsb(vg, x0, bounds, maxiter, tol, verbose) -> OptimizeResult:
                    method="L-BFGS-B", bounds=bounds, options=options)
     return OptimizeResult(bool(out.success), float(out.fun), -float(out.fun),
                           np.asarray(out.x), int(out.nit), str(out.message))
+
+
+def _torch_lbfgs(vg, x0, maxiter, tol) -> OptimizeResult:
+    """L-BFGS on the device: each iteration evaluates the value and gradient
+    at x_k, stops if ||g_k|| < tol, and otherwise takes one strong-Wolfe
+    step; like the JAX package's loop it reports the value at the last x_k
+    and returns the point after its step. The line search reads each value
+    on the host."""
+    x = x0.detach().clone().requires_grad_()
+    # one iteration a step() call; max_eval leaves the line search its 25
+    # evaluations (torch gives it max_eval minus the one at x_k); optax's
+    # memory of 10 pairs
+    opt = torch.optim.LBFGS([x], lr=1.0, max_iter=1, max_eval=26, tolerance_grad=0.0,
+                            tolerance_change=0.0, history_size=10,
+                            line_search_fn="strong_wolfe")
+    evals = []
+
+    def closure():
+        v, g = vg(x.detach())
+        v = float(v)
+        if not math.isfinite(v):
+            v, g = 1e100, torch.zeros_like(g)
+        x.grad = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        evals.append((v, x.grad))
+        return v
+
+    value, it, n_evals = math.inf, 0, 0
+    for it in range(maxiter):
+        evals.clear()
+        opt.step(closure)
+        n_evals += len(evals)
+        value, g = evals[0]  # at x_k, before the step
+        if float(torch.linalg.norm(g)) < tol:
+            break
+    return OptimizeResult(True, value, -value, x.detach().cpu().numpy(), it + 1,
+                          f"{n_evals} evaluations")

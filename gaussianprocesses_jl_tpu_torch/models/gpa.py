@@ -234,18 +234,26 @@ class GPA:
     def block_flag_names(self):
         return ("lik", "domean", "kern")
 
-    def make_logprob(self, lik=True, domean=True, kern=True, *, include_priors=True):
-        """Log target over [v; selected hyperparameter blocks], for the
-        samplers: (logprob, x0, embed, blocks)."""
-        flags = (True, lik, domean, kern)
+    def _block_plumbing(self, flags):
+        """(embed, x0, blocks) over [v (always); selected blocks]."""
+        flags = (True,) + tuple(flags)
         full0 = self.params.flat_params().detach()
         sls = self.params.block_slices()
         names = ("process",) + self.block_flag_names()
         active = [(n, s) for n, s, f in zip(names, sls, flags) if f]
-        base, X, y, cs = self.params, self.x, self.y, self.covstrat
 
         def embed(sub):
             return _embed(full0, sub, sls, flags)
+
+        x0 = torch.cat([full0[s] for _, s in active])
+        blocks = [(n, s.stop - s.start) for n, s in active]
+        return embed, x0, blocks
+
+    def make_logprob(self, lik=True, domean=True, kern=True, *, include_priors=True):
+        """Log target over [v; selected hyperparameter blocks], for the
+        samplers: (logprob, x0, embed, blocks)."""
+        embed, x0, blocks = self._block_plumbing((lik, domean, kern))
+        base, X, y, cs = self.params, self.x, self.y, self.covstrat
 
         def logprob(sub):
             p = base.with_flat_params(embed(sub))
@@ -253,8 +261,6 @@ class GPA:
                 return gpa_target(p, X, y, cs)[0]
             return gpa_ll(p, X, y, cs)[0]
 
-        x0 = torch.cat([full0[s] for _, s in active])
-        blocks = [(n, s.stop - s.start) for n, s in active]
         return logprob, x0, embed, blocks
 
     def make_split_logprob(self, *, include_priors=True):

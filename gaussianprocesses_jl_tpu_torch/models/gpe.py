@@ -82,12 +82,20 @@ def gpe_target(params: GPEParams, X, y, covstrat=FullCovariance()):
 
 
 def gpe_predict_f(params: GPEParams, X, y, Xs, covstrat=FullCovariance(),
-                  full_cov: bool = False):
-    """Posterior predictive of the latent f at Xs, batched."""
+                  full_cov: bool = False, blockindpred=None):
+    """Posterior predictive of the latent f at Xs, batched.
+
+    blockindpred: padded (idx, mask) tuples (`models.sparse.pad_pred_blocks`)
+    assigning test points to FSA training blocks for the cross-Lambda
+    correction; only FullScaleApproxStrat accepts it."""
     pd = gpe_factorize(params, X, covstrat)
     r = y - params.mean.mean(X)
     alpha = pd.solve(r)
-    mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov)
+    if blockindpred is None:
+        mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov)
+    else:
+        mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov,
+                                             blockindpred=blockindpred)
     return params.mean.mean(Xs) + mu_cross, cov
 
 
@@ -256,12 +264,24 @@ class GPE:
         return self
 
     # -- prediction --------------------------------------------------------
-    def predict_f(self, xs, full_cov: bool = False):
-        """Posterior latent predictive (mean, variance or covariance)."""
+    def predict_f(self, xs, full_cov: bool = False, blockindpred=None):
+        """Posterior latent predictive (mean, variance or covariance). For an
+        FSA model, `blockindpred` (one sequence of test-point indices for
+        each training block) turns on the cross-block Lambda_xf correction;
+        test points left unassigned are treated as their own blocks."""
         xs = _as_X(xs, dtype=self.dtype, device=self.device)
+        if blockindpred is not None:
+            from .sparse import FullScaleApproxStrat, pad_pred_blocks
+
+            if not isinstance(self.covstrat, FullScaleApproxStrat):
+                raise TypeError(
+                    "blockindpred is only meaningful for the FSA strategy; "
+                    f"got {type(self.covstrat).__name__}")
+            blockindpred = pad_pred_blocks(blockindpred, xs.shape[0],
+                                           self.covstrat.block_idx.shape[0])
         with torch.no_grad():
             return gpe_predict_f(self.params, self.x, self.y, xs, self.covstrat,
-                                 full_cov)
+                                 full_cov, blockindpred)
 
     def predict_y(self, xs, full_cov: bool = False):
         """The latent predictive plus observation noise.
@@ -319,17 +339,25 @@ class GPE:
     def block_flag_names(self):
         return ("noise", "domean", "kern")
 
-    def make_logprob(self, noise=True, domean=True, kern=True, *,
-                     include_priors=True):
-        """Log target over the selected blocks: (logprob, x0, embed, blocks)."""
-        flags = (noise, domean, kern)
+    def _block_plumbing(self, flags):
+        """(embed, x0, blocks) over the selected parameter blocks: embed(sub)
+        is the full flat vector with those blocks taken from sub."""
         full0 = self.params.flat_params().detach()
         sls = self.params.block_slices()
         active = [(n, s) for n, s, f in zip(self.block_flag_names(), sls, flags) if f]
-        base, X, y, cs = self.params, self.x, self.y, self.covstrat
 
         def embed(sub):
             return _embed(full0, sub, sls, flags)
+
+        x0 = torch.cat([full0[s] for _, s in active]) if active else full0[:0]
+        blocks = [(n, s.stop - s.start) for n, s in active]
+        return embed, x0, blocks
+
+    def make_logprob(self, noise=True, domean=True, kern=True, *,
+                     include_priors=True):
+        """Log target over the selected blocks: (logprob, x0, embed, blocks)."""
+        embed, x0, blocks = self._block_plumbing((noise, domean, kern))
+        base, X, y, cs = self.params, self.x, self.y, self.covstrat
 
         def logprob(sub):
             p = base.with_flat_params(embed(sub))
@@ -337,8 +365,6 @@ class GPE:
                 return gpe_target(p, X, y, cs)[0]
             return gpe_mll(p, X, y, cs)[0]
 
-        x0 = torch.cat([full0[s] for _, s in active]) if active else full0[:0]
-        blocks = [(n, s.stop - s.start) for n, s in active]
         return logprob, x0, embed, blocks
 
     def make_objective(self, noise=True, domean=True, kern=True):

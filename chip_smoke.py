@@ -72,14 +72,17 @@ Phases, each of which exits non-zero on the first failure:
  18. configuration #4 at full width (N = 100 000, m = 512, d = 4, f32): the
      gram kernels against their plain versions at the cross shape 512 x
      100 000, then 3 Adam steps of perf/fitc_study.py (2 + 2 launches a
-     step, a finite and falling loss);
+     step, 1 + 1 of them at the cross shape; a finite and falling loss);
  19. FSA at N = 10 000 over 23 ragged blocks: the batched block grams (one
      launch, parameters shared) against their plain versions, mll and
      gradient (3 + 3 launches) and prediction with blockindpred against
      f64 on the card and on the CPU;
  20. configuration #3, Poisson VI at n = 4096 (perf/vi_study.py): the ELBO
      rises over 150 Adam steps (1 gram launch, no VJP), the rate follows
-     the counts, the predictive in f32 against f64;
+     the counts; every gram launch of the run, and the VJP at its shapes,
+     against the plain versions; the negative ELBO (value and gradient)
+     and the predictive, f64 on the card against f64 on the CPU and f32
+     against f64 at f32's nugget;
  21. cross-validation on the headline: logp_LOO and dlogp_LOO (1 + 1
      launches), logp_CVfold and dlogp_CVfold over 10 equal folds, f32 and
      f64 on the card against f64 on the CPU;
@@ -87,7 +90,8 @@ Phases, each of which exits non-zero on the first failure:
      than the start, 1 + 1 launches an evaluation;
  23. the notebook anchors (perf/anchors.py): robust regression, Poisson MCMC
      against VI, Mauna Loa by both optimizers, the sparse golden mlls and
-     the regression quickstart.
+     the regression quickstart, each anchor's gram launches then held
+     against the plain versions at their inputs.
 Phase 8 also times the batched kernels (C = 128, n = 200) and
 configuration #4's cross gram (512 x 100 000, perf/fitc_study.py) for the
 table.
@@ -99,6 +103,7 @@ only the forward. The last three lines are the kernel table (JSON), the card, an
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -127,6 +132,7 @@ from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     enqueue_ms,
     gram_bound_ms,
     gram_vjp_bound_ms,
+    launches,
     profile_ms,
     time_ms,
 )
@@ -144,16 +150,6 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-
-
-def launches(fn):
-    """(result, (gram launches, gram_vjp launches)) of one main-path call,
-    counted from 0."""
-    for name in gram_op.LAUNCHES:
-        gram_op.LAUNCHES[name] = 0
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (gram_op.LAUNCHES["gram"], gram_op.LAUNCHES["gram_vjp"])
 
 
 def stationary_kernels():
@@ -1081,30 +1077,106 @@ def check_f64_card(name, m64, m64c):
                 1e-10 * float(np.abs(gc).max()))
 
 
-def phase_kernels_at(dev, what, fam, p, X1, X2, G) -> dict:
-    """The gram kernel and the dp-only VJP kernel against their plain versions
-    at one of the sparse path's shapes (X1 batched over blocks where it is
-    3-D, p shared), f32: the forward within atol 1e-5 sigma^2, the VJP within
-    1e-5 of its sums of magnitudes (phase 3's tolerances). Returns the
-    largest absolute differences."""
-    sig2 = float(torch.exp(2 * p[0]))
+def _f64(t):
+    return None if t is None else t.double()
+
+
+def check_gram_at(what, fam, p, X1, X2) -> float:
+    """The gram kernel against its plain version at one shape of the path
+    (X1 or p batched over blocks or chains where 3-D or 2-D): within atol
+    1e-5 sigma^2 in f32 and 1e-12 sigma^2 in f64 (phase 3's tolerances).
+    The plain version runs in f64 on the same inputs: the kernel takes
+    direct differences, and the f32 plain version, above its size budget,
+    takes the expansion, whose rounding of r2 (a few ulp of |x|^2) alone
+    passes the f32 tolerance where |x|^2 is large (576 at configuration
+    #3's n = 4096). Returns max|K - plain|."""
+    tol = 1e-5 if X1.dtype == torch.float32 else 1e-12
+    sig2 = float(torch.exp(2 * p[..., 0]).max())
     K = gram_op.launch_gram(fam, p, X1, X2)
-    K0 = gram_op.gram_plain(fam, p, X1, X2)
-    err = float((K - K0).abs().max())
-    needs = (True, False, False)
-    got = gram_op.launch_gram_vjp(fam, p, X1, X2, G, needs)
-    ref = gram_op.gram_vjp_plain(fam, p, X1, X2, G, needs)
-    if X1.ndim == 3:
-        scales = batched_vjp_scales(fam, p, X1, X2, G)
-    else:
-        scales = vjp_scales(fam, p, X1, X2, G)
-    verr, ratio = check_vjp(got, ref, scales, 1e-5)
-    ok = err <= 1e-5 * sig2 and ratio <= 1.0 and bool(torch.isfinite(K).all())
-    print(f"  {what}: max|K - plain| {err:.3e} (atol {1e-5 * sig2:.1e}), max|dp - plain| "
-          f"{verr:.3e} ({ratio:.3f} of tol) {'ok' if ok else 'FAIL'}")
+    K0 = gram_op.gram_plain(fam, p.double(), X1.double(), _f64(X2))
+    err = float((K.double() - K0).abs().max())
+    ok = bool(torch.isfinite(K).all()) and err <= tol * sig2
+    print(f"  {what}: max|K - plain| {err:.3e} (atol {tol * sig2:.1e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        fail(f"gram kernels disagree with their plain versions at {what}")
-    return {"gram": err, "gram_vjp": verr}
+        fail(f"the gram kernel disagrees with its plain version at {what}")
+    return err
+
+
+def check_vjp_at(what, fam, p, X1, X2, G, needs=(True, False, False)) -> float:
+    """The VJP kernel against its plain version (in f64 on the same inputs,
+    as in `check_gram_at`) at one shape of the path: each output asked for
+    within 1e-5 (f32) or 1e-12 (f64) of its sums of magnitudes (phase 3's
+    tolerances). Returns the largest absolute difference."""
+    tol = 1e-5 if X1.dtype == torch.float32 else 1e-12
+    got = gram_op.launch_gram_vjp(fam, p, X1, X2, G, needs)
+    args = (p.double(), X1.double(), _f64(X2), G.double())
+    ref = gram_op.gram_vjp_plain(fam, *args, needs)
+    batched = p.ndim == 2 or X1.ndim == 3 or (X2 is not None and X2.ndim == 3)
+    scales = (batched_vjp_scales if batched else vjp_scales)(fam, *args)
+    err, ratio = check_vjp(got, ref, scales, tol)
+    print(f"  {what}: max|vjp - plain| {err:.3e} ({ratio:.3f} of tol) "
+          f"{'ok' if ratio <= 1.0 else 'FAIL'}")
+    if not ratio <= 1.0:
+        fail(f"the VJP kernel disagrees with its plain version at {what}")
+    return err
+
+
+def phase_kernels_at(dev, what, fam, p, X1, X2, G) -> dict:
+    """Both gram kernels at one of the path's shapes, the VJP with dp alone
+    (as the sparse models' steps run it). Returns the largest absolute
+    differences."""
+    return {"gram": check_gram_at(what, fam, p, X1, X2),
+            "gram_vjp": check_vjp_at(what, fam, p, X1, X2, G)}
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """While open, keeps a copy of the inputs of the last launch of each
+    gram kernel at each (family, dtype, shapes, needs) that the path runs
+    (a sampler's first VJP may have a zero cotangent: its latents start
+    at 0), so that `check_captured` can hold the kernels against their
+    plain versions at those inputs after the run whose launches are
+    counted."""
+    seen = {}
+    launch_gram, launch_gram_vjp = gram_op.launch_gram, gram_op.launch_gram_vjp
+
+    def keep(key, *args):
+        seen[key] = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
+                          for a in args)
+
+    def shapes(*ts):
+        return tuple(None if t is None else tuple(t.shape) for t in ts)
+
+    def gram(family, p, X1, X2=None, grid=0):
+        keep(("gram", family, X1.dtype, shapes(p, X1, X2)), family, p, X1, X2)
+        return launch_gram(family, p, X1, X2, grid)
+
+    def vjp(family, p, X1, X2, G, needs=(True, True, True), grid=0):
+        needs = tuple(bool(x) for x in needs)
+        keep(("gram_vjp", family, X1.dtype, shapes(p, X1, X2, G), needs),
+             family, p, X1, X2, G, needs)
+        return launch_gram_vjp(family, p, X1, X2, G, needs, grid)
+
+    gram_op.launch_gram, gram_op.launch_gram_vjp = gram, vjp
+    try:
+        yield seen
+    finally:
+        gram_op.launch_gram, gram_op.launch_gram_vjp = launch_gram, launch_gram_vjp
+
+
+def check_captured(what, seen) -> dict:
+    """Every launch `captured_launches` kept, replayed and held against the
+    plain version (`check_gram_at`, `check_vjp_at`). Returns the largest
+    absolute differences."""
+    errs = {"gram": 0.0, "gram_vjp": 0.0}
+    for key, args in seen.items():
+        shape = " x ".join("-" if s is None else str(s) for s in key[3])
+        label = f"{what}: {key[0]} family {key[1]} {str(key[2])[6:]} {shape}"
+        if key[0] == "gram":
+            errs["gram"] = max(errs["gram"], check_gram_at(label, *args))
+        else:
+            errs["gram_vjp"] = max(errs["gram_vjp"], check_vjp_at(label + f" {key[4]}", *args))
+    return errs
 
 
 N_FITC_STEPS = 3  # phase 18's Adam steps at N = 100 000
@@ -1114,7 +1186,8 @@ def phase_fitc_100k(dev) -> dict:
     """Phase 18: configuration #4 at full width. The gram kernels at the cross
     shape against their plain versions; N_FITC_STEPS steps of
     perf/fitc_study.py's Adam with the reject-don't-commit guard (counts set
-    to 0 before, read after: exactly 2 + 2 launches a step), each timed by
+    to 0 before, read after: exactly 2 + 2 launches a step, 1 + 1 of them at
+    the cross shape, counted by shape where they launch), each timed by
     CUDA events, the loss finite and falling. (The cross gram's own times
     are taken in phase 8, before phase 16's profile.)"""
     X, _, Xu = fitc_study.config4_data()
@@ -1138,15 +1211,19 @@ def phase_fitc_100k(dev) -> dict:
             step_ms.append(ms)
 
     _, n = launches(steps)
+    shape = (fitc_study.M, fitc_study.N)
+    cross = tuple(gram_op.LAUNCH_SHAPES[(name, *shape)] for name in ("gram", "gram_vjp"))
     print(f"FITC N={fitc_study.N}: set-up {setup_s:.2f} s, losses {losses}, step ms "
-          f"{step_ms}, {n[0]} gram and {n[1]} gram_vjp launches, peak "
+          f"{step_ms}, {n[0]} gram and {n[1]} gram_vjp launches ({cross[0]} and {cross[1]} "
+          f"at {shape[0]} x {shape[1]}), peak "
           f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB", flush=True)
-    if n != (2 * N_FITC_STEPS, 2 * N_FITC_STEPS):
-        fail(f"FITC at N={fitc_study.N}: {n} launches, expected 2 + 2 a step")
+    if n != (2 * N_FITC_STEPS, 2 * N_FITC_STEPS) or cross != (N_FITC_STEPS, N_FITC_STEPS):
+        fail(f"FITC at N={fitc_study.N}: {n} launches ({cross} at the cross shape), expected "
+             f"2 + 2 a step, 1 + 1 of them K(Xu, X)")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         fail(f"FITC at N={fitc_study.N}: loss not finite or not falling: {losses}")
-    return {"launches": n, "losses": losses, "step_ms": step_ms, "setup_s": setup_s,
-            "max_abs_err": errs}
+    return {"launches": n, "cross_launches": cross, "losses": losses, "step_ms": step_ms,
+            "setup_s": setup_s, "max_abs_err": errs}
 
 
 def fsa_model(device, dtype):
@@ -1199,21 +1276,88 @@ def phase_fsa(dev) -> tuple:
     return tuple(a + b for a, b in zip(n_eval, n_pred)), errs
 
 
-def phase_vi(dev) -> dict:
-    """Phase 20: configuration #3 (perf/vi_study.py): 150 Adam steps on the
-    card in f32 must raise the ELBO with exactly 1 gram launch and no VJP;
-    the rate exp(m + v/2) must correlate with the counts above 0.5 (the
-    Poisson anchor's bar); the predictive at the training points, f32 and
-    f64 on the card from the same Q (2 + 2 forward launches), must be
-    finite, and its f32-to-f64 distance is printed: the example warns the
-    f32 triangular solves are fragile at this n (on the CPU, `vi_study
-    --f32-gap`, the f32 mean stood 2.2e2 of max|mu| away)."""
-    out = vi_study.run(dev)
-    ok = (out["elbo"] > out["elbo0"] and out["fit_launches"] == (1, 0)
-          and out["predict_launches"] == (4, 0) and out["rate_corr"] > 0.5
-          and out["predictive_f32_vs_f64"]["finite"])
+# phase 20's tolerances, as (value or mean, gradient or variance). f64 on
+# the card against f64 on the CPU, the CPU's gram by direct differences as
+# the kernel takes them; `vi_study --f32-gap` (CPU) grounds them: on the
+# observations permuted the f64 objective moved 1.3e-13 (value, relative)
+# and 1.5e-11 (gradient, of max|g|) at the f32 nugget 1e-4, 8.8e-12 and
+# 1.5e-9 at f64's own 1e-6; the predictive 4.9e-13 and 6.3e-12 (of max),
+# 4.4e-11 and 5.1e-10. (The plain version's expansion of r2, which an f64
+# CPU reference takes at this size otherwise, moves them 5.7e-13 and
+# 3.1e-9, 4.5e-10 and 3.2e-7; 9.9e-12 and 1.0e-9, 7.8e-10 and 8.5e-8.)
+VI_F64 = {"1e-4": (1e-11, 1e-9), "1e-6": (1e-9, 1e-7)}
+VI_F64_PREDICTIVE = {"1e-4": (1e-10, 1e-10), "1e-6": (1e-8, 1e-8)}
+# f32 on the card against f64 on the card at the same nugget (1e-4), and
+# against f32 on the CPU (its gram by direct differences: the plain f32
+# gram's expansion of r2 at |x|^2 = 576 moves K by ~5e-5, half the nugget,
+# and the CPU's f32 factor then fails). `--f32-gap` (CPU, direct
+# differences): f32 against f64 at 1e-4 stood 3.0e-4 (value) and 6.8e-3
+# (gradient), the predictive 2.6e-5 and 4.3e-3; f32 against itself
+# permuted 2.0e-4 and 6.6e-3.
+VI_F32_OBJECTIVE = (1e-3, 2e-2)
+VI_F32_CPU_OBJECTIVE = (1e-3, 3e-2)
+VI_F32_PREDICTIVE = (1e-4, 2e-2)
+
+
+def within(what, got, tol) -> None:
+    """Fails unless each of `got` (relative gaps) is within its `tol`."""
+    ok = all(g <= t for g, t in zip(got, tol))  # False on NaN
+    print(f"  {what}: {got[0]:.3e}, {got[1]:.3e} (tol {tol[0]:g}, {tol[1]:g}) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
+        fail(f"{what}: {got} beyond {tol}")
+
+
+def phase_vi(dev) -> dict:
+    """Phase 20: configuration #3 (perf/vi_study.py). Its run on the card
+    (launches counted from 0 around the fit: 1 gram, no VJP) must raise the
+    ELBO over 150 Adam steps with the f32 prior factor holding, and the
+    rate exp(m + v/2) must correlate with the counts above 0.5 (the
+    Poisson anchor's bar). Every gram launch of the run (the f32 and f64
+    priors, 4096 x 4096 symmetric, and the predictives' cross grams) is
+    then held against the plain version, and the VJP kernel, which the
+    fit does not run, at the same shapes on a random cotangent. The
+    negative ELBO's value and gradient at theta0 and at the fit, and the
+    predictive from the fit's Q: f64 on the card against f64 on the CPU at
+    both nuggets (`VI_F64`, `VI_F64_PREDICTIVE`), f32 on the card against
+    f64 on the card at f32's nugget (`VI_F32_OBJECTIVE`,
+    `VI_F32_PREDICTIVE`) and against f32 on the CPU
+    (`VI_F32_CPU_OBJECTIVE`)."""
+    with captured_launches() as seen:
+        out = vi_study.run(dev)
+    errs = check_captured("VI", seen)
+    k = gp.Matern(1.5, np.log(0.5), 0.0).to(dtype=torch.float32, device=dev)
+    t, _ = vi_study.config3_data()
+    X = k._scale(torch.as_tensor(t[:, None], dtype=torch.float32, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for sym in (True, False):
+        G = torch.randn((vi_study.N, vi_study.N), generator=gen, dtype=torch.float32, device=dev)
+        errs["gram_vjp"] = max(errs["gram_vjp"], check_vjp_at(
+            f"VI Matern 3/2 {vi_study.N} x {vi_study.N} {'sym' if sym else 'cross'}",
+            k._family, k._gram_params(), X, None if sym else X.flip(0).contiguous(), G,
+            (True, True, not sym)))
+    if not (out["factor_ok"] and out["elbo"] > out["elbo0"] and out["rate_corr"] > 0.5
+            and out["fit_launches"] == (1, 0) and out["objective_launches"] == (3, 0)
+            and out["predict_launches"] == (6, 0) and out["predictive"]["finite"]
+            and all(row["finite"] for row in out["objective"].values())):
         fail(f"VI at n={out['n']}: {out}")
+    for at, row in out["objective"].items():
+        within(f"VI neg_elbo at {at}, f64 card vs CPU, nugget 1e-4",
+               row["f64_card_vs_cpu_1e-4"], VI_F64["1e-4"])
+        within(f"VI neg_elbo at {at}, f64 card vs CPU, nugget 1e-6",
+               row["f64_card_vs_cpu"], VI_F64["1e-6"])
+        within(f"VI neg_elbo at {at}, f32 card vs f64 card, nugget 1e-4",
+               row["f32_card_vs_f64_card_1e-4"], VI_F32_OBJECTIVE)
+        within(f"VI neg_elbo at {at}, f32 card vs f32 CPU", row["f32_card_vs_f32_cpu"],
+               VI_F32_CPU_OBJECTIVE)
+    pr = out["predictive"]
+    within("VI predictive, f64 card vs CPU, nugget 1e-4", pr["f64_1e-4_card_vs_cpu"],
+           VI_F64_PREDICTIVE["1e-4"])
+    within("VI predictive, f64 card vs CPU, nugget 1e-6", pr["f64_card_vs_cpu"],
+           VI_F64_PREDICTIVE["1e-6"])
+    within("VI predictive, f32 card vs f64 card, nugget 1e-4", pr["card_f32_vs_f64_1e-4"],
+           VI_F32_PREDICTIVE)
+    out["max_abs_err"] = errs
     return out
 
 
@@ -1291,14 +1435,21 @@ def phase_anchors(dev) -> dict:
     regression (rmse_t < rmse_g and < 0.15), Poisson (both correlations >
     0.5, within 0.15), Mauna Loa by L-BFGS-B and by method='optax' (rmse <
     3.5), the sparse golden mlls at N = 1000 (abs 1e-3), the regression
-    quickstart (finite). Returns each anchor's numbers and the launches."""
-    out, total = {}, [0, 0]
+    quickstart (finite). Every gram launch of each anchor is then held
+    against its plain version at its inputs (`check_captured`, the last
+    launch at each family, dtype and shape): d = 1, n = 40 to 1000, the
+    Mauna Loa composite's SE, Periodic and RQ grams in f64. Returns each
+    anchor's numbers, the launches and the kernels' largest differences."""
+    out, total, errs = {}, [0, 0], {"gram": 0.0, "gram_vjp": 0.0}
 
     def run(name, fn):
         t0 = time.perf_counter()
-        res, n = launches(fn)
+        with captured_launches() as seen:
+            res, n = launches(fn)
         res["s"], res["launches"] = time.perf_counter() - t0, n
         print(f"anchor {name}: {json.dumps(res)}", flush=True)
+        for kernel, err in check_captured(name, seen).items():
+            errs[kernel] = max(errs[kernel], err)
         out[name] = res
         total[0] += n[0]
         total[1] += n[1]
@@ -1324,7 +1475,7 @@ def phase_anchors(dev) -> dict:
                                                      dtype=np.float32))
     if not r["finite"]:
         fail(f"regression quickstart: {r}")
-    return out, tuple(total)
+    return out, tuple(total), errs
 
 
 def main() -> int:
@@ -1506,13 +1657,14 @@ def main() -> int:
         print(f"phase {label}", flush=True)
         new_launches.append(fn())
         print(f"phase {label.split(':')[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
-    n_fitc10k, fitc, (n_fsa, fsa_errs), vi_out, n_cv, n_optax, (anchor_rows, n_anchors) = \
-        new_launches
+    (n_fitc10k, fitc, (n_fsa, fsa_errs), vi_out, n_cv, n_optax,
+     (anchor_rows, n_anchors, anchor_errs)) = new_launches
     main_launches = [sum(col) for col in zip(
         main_launches, n_fitc10k, fitc["launches"], n_fsa, vi_out["fit_launches"],
-        vi_out["predict_launches"], n_cv, n_optax, n_anchors)]
-    worst32 = max(worst32, fitc["max_abs_err"]["gram"], fsa_errs["gram"])
-    vjp_worst32 = max(vjp_worst32, fitc["max_abs_err"]["gram_vjp"], fsa_errs["gram_vjp"])
+        vi_out["objective_launches"], vi_out["predict_launches"], n_cv, n_optax, n_anchors)]
+    for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs):
+        worst32 = max(worst32, errs["gram"])
+        vjp_worst32 = max(vjp_worst32, errs["gram_vjp"])
     print("sparse, VI and anchors: " + json.dumps({"fitc_100k": fitc, "vi": vi_out,
                                                    "anchors": anchor_rows}))
 
@@ -1536,7 +1688,7 @@ def main() -> int:
         "by_n": gram_rows,
         "batched": {**batched_rows["forward"], "max_abs_err": batched_worst["gram"],
                     "launches": split_launches[0], "launches_per_outer_iteration": 17},
-        "cross_512x100000": {**cross_rows["gram"], "launches": fitc["launches"][0] // 2,
+        "cross_512x100000": {**cross_rows["gram"], "launches": fitc["cross_launches"][0],
                              "max_abs_err": fitc["max_abs_err"]["gram"]},
     }, {
         "name": "gram_vjp",
@@ -1558,7 +1710,8 @@ def main() -> int:
         "batched": {**batched_rows["gram_vjp"], "max_abs_err": batched_worst["gram_vjp"],
                     "max_err_over_tol": batched_worst["vjp_ratio"],
                     "launches": split_launches[1], "launches_per_outer_iteration": 16},
-        "cross_512x100000": {**cross_rows["gram_vjp"], "launches": fitc["launches"][1] // 2,
+        "cross_512x100000": {**cross_rows["gram_vjp"],
+                             "launches": fitc["cross_launches"][1],
                              "max_abs_err": fitc["max_abs_err"]["gram_vjp"]},
     }]}
     study_src = {

@@ -171,6 +171,22 @@ __device__ __forceinline__ T profile(T r2, const Hyper<T>& h) {
   }
 }
 
+// u - lz = z/(1+z) - log1p(z), u = z/(1+z), lz = log1p(z): RQ's
+// dK/dlalpha over K alpha. Below u = 0.05 the two terms cancel to ~-u^2/2
+// and their difference keeps only ~eps/u of its relative accuracy (a
+// switched-off RQ term, its length scale ~e^17, has u ~ 1e-11), so there
+// it is summed as -u^2 sum_{k=2..17} u^(k-2)/k, whose terms share one sign.
+template <typename T>
+__device__ __forceinline__ T rq_dlalpha(T u, T lz) {
+  if (u < T(0.05)) {
+    T s = T(1) / T(17);
+#pragma unroll
+    for (int k = 16; k >= 2; --k) s = s * u + T(1) / T(k);
+    return -u * u * s;
+  }
+  return u - lz;
+}
+
 // The profile K and its derivatives in ll, extra and r2 at one r2, written
 // out in closed form as `gram_derivs` in ops/gram.py writes them (dK/dlsigma
 // is 2K). dr2 is 0 at r = 0 for the families of r, as the plain version's
@@ -188,7 +204,7 @@ __device__ __forceinline__ void derivs(T r2, const Hyper<T>& h, T& K, T& dll, T&
     K = d_fexp(h.two_lsig - h.alpha * lz);
     const T q = T(1) / (T(1) + z);
     dll = T(2) * K * h.alpha * z * q;
-    dex = K * h.alpha * (z * q - lz);
+    dex = K * h.alpha * rq_dlalpha(z * q, lz);
     dr2 = T(-0.5) * K * h.il2 * q;
   } else {
     const bool pos = r2 > T(0);

@@ -39,10 +39,12 @@ class Approx:
     v: torch.Tensor  # (n,) marginal variances
 
 
-def _prior_factor(gp):
-    """The latent prior K + nugget, factorized at the current kernel
-    parameters, and the prior mean at the data."""
-    pd = gp.covstrat.build(gp.params.kernel, gpa_nugget(gp.dtype), gp.x)
+def _prior_factor(gp, nugget=None):
+    """The latent prior K + nugget (`gpa_nugget(dtype)` unless given),
+    factorized at the current kernel parameters, and the prior mean at the
+    data."""
+    nugget = gpa_nugget(gp.dtype) if nugget is None else nugget
+    pd = gp.covstrat.build(gp.params.kernel, nugget, gp.x)
     return pd, gp.params.mean.mean(gp.x)
 
 
@@ -51,9 +53,9 @@ def _diag_Kinv(pd):
     return torch.sum(Linv * Linv, dim=0)
 
 
-def _prior_pieces(gp):
+def _prior_pieces(gp, nugget=None):
     """(pd, mu, diag(K^-1)) of the latent prior."""
-    pd, mu = _prior_factor(gp)
+    pd, mu = _prior_factor(gp, nugget)
     return pd, mu, _diag_Kinv(pd)
 
 
@@ -72,12 +74,13 @@ def elbo(gp, m, v):
         return -_neg_elbo(pd, mu, diag_Kinv, gp.params.lik, gp.y, m, v, torch.sum(torch.log(v)))
 
 
-def make_neg_elbo(gp):
+def make_neg_elbo(gp, nugget=None):
     """(neg_elbo(theta), theta0, n) with theta = [m; rho], v = exp(2 rho),
     started at the prior: m = mu, v = diag(K). The prior's factor is built
-    here, once, outside autograd."""
+    here, once, outside autograd, with `nugget` on K (`gpa_nugget(dtype)`,
+    the one `vi` fits with, unless given)."""
     with torch.no_grad():
-        pd, mu, diag_Kinv = _prior_pieces(gp)
+        pd, mu, diag_Kinv = _prior_pieces(gp, nugget)
         v0 = torch.clamp(gp.params.kernel.diag(gp.x), min=1e-8)
         theta0 = torch.cat([mu, 0.5 * torch.log(v0)])
     lik, y, n = gp.params.lik, gp.y, mu.shape[0]
@@ -135,14 +138,14 @@ def vi(gp, nits: int = 100, method: str = "lbfgs", lr: float = 0.05,
     return Approx(m=theta[:n], v=torch.exp(2.0 * theta[n:]))
 
 
-def vi_predict_f(gp, Q: Approx, xs, full_cov: bool = False):
+def vi_predict_f(gp, Q: Approx, xs, full_cov: bool = False, nugget=None):
     """Variational posterior predictive of the latent f at xs:
     mu* = m(xs) + Kxs^T K^-1 (Q.m - mu), S* = K** - W^T W + A^T diag(Q.v) A
-    with W = L^-1 Kxs, A = K^-1 Kxs."""
+    with W = L^-1 Kxs, A = K^-1 Kxs; `nugget` on K as in `make_neg_elbo`."""
     xs = _as_X(xs, dtype=gp.dtype, device=gp.device)
     kern = gp.params.kernel
     with torch.no_grad():
-        pd, mu = _prior_factor(gp)
+        pd, mu = _prior_factor(gp, nugget)
         Kxs = kern.gram(gp.x, xs)  # (n, ns)
         W = pd.whiten(Kxs)
         A_r = pd.solve(Kxs)

@@ -5,7 +5,8 @@ code is generic over it:
 
   build(kernel, noise_var, X) -> PD        factorized train covariance
   quad_logdet(kernel, noise_var, X, r)     fused (r^T K^-1 r, logdet, ok)
-  predict_mvn(pd, kernel, X, r, alpha, Xs, full_cov) -> (mu_cross, cov/var)
+  predict_mvn(pd, kernel, X, r, alpha, Xs, full_cov, blockindpred=None)
+      -> (mu_cross, cov/var)
 
 `FullCovariance` is the dense exact strategy.
 """
@@ -77,9 +78,11 @@ class FullCovariance(Module):
         K = add_diag(kernel.gram(X), noise_var)
         return dense_quad_logdet(K, r)
 
-    def predict_mvn(self, pd: DensePD, kernel, X, r, alpha, Xs, full_cov: bool):
+    def predict_mvn(self, pd: DensePD, kernel, X, r, alpha, Xs, full_cov: bool,
+                    blockindpred=None):
         """Batched posterior MVN at test points: (K(Xs,X) alpha, cov or var);
-        the caller adds the prior mean. `r` is unused by the dense strategy."""
+        the caller adds the prior mean. `r` and `blockindpred` (FSA's) are
+        unused by the dense strategy."""
         Kxs = kernel.gram(X, Xs)  # (n, ns)
         mu_cross = Kxs.T @ alpha
         V = pd.whiten(Kxs)  # (n, ns)

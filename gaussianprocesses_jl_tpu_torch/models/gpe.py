@@ -91,11 +91,8 @@ def gpe_predict_f(params: GPEParams, X, y, Xs, covstrat=FullCovariance(),
     pd = gpe_factorize(params, X, covstrat)
     r = y - params.mean.mean(X)
     alpha = pd.solve(r)
-    if blockindpred is None:
-        mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov)
-    else:
-        mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov,
-                                             blockindpred=blockindpred)
+    mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov,
+                                         blockindpred)
     return params.mean.mean(Xs) + mu_cross, cov
 
 

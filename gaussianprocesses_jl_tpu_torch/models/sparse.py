@@ -240,8 +240,10 @@ class SubsetOfRegsStrategy(Module):
         d = noise_var.expand(X.shape[0])
         return _finish(Luu, ok_uu, Kuf, _DiagLambda(d=d))
 
-    def predict_mvn(self, pd: LowRankPD, kernel, X, r, alpha, Xs, full_cov: bool):
-        """mu = Kxu alpha_u, Sigma = Kxu (R^T R)^-1 Kux."""
+    def predict_mvn(self, pd: LowRankPD, kernel, X, r, alpha, Xs, full_cov: bool,
+                    blockindpred=None):
+        """mu = Kxu alpha_u, Sigma = Kxu (R^T R)^-1 Kux. `blockindpred` is
+        FSA's; every other strategy takes and ignores it."""
         Kux = kernel.gram(self.inducing, Xs)
         mu_cross = Kux.T @ pd.alpha_u(r)
         Lck = solve_lower(pd.Lqr, Kux)
@@ -260,7 +262,7 @@ class DeterminTrainCondStrat(Module):
     def build(self, kernel, noise_var, X) -> LowRankPD:
         return SubsetOfRegsStrategy(inducing=self.inducing).build(kernel, noise_var, X)
 
-    def predict_mvn(self, pd, kernel, X, r, alpha, Xs, full_cov):
+    def predict_mvn(self, pd, kernel, X, r, alpha, Xs, full_cov, blockindpred=None):
         Kux = kernel.gram(self.inducing, Xs)
         mu_cross = Kux.T @ pd.alpha_u(r)
         Lck = solve_lower(pd.Lqr, Kux)  # (R^T R)^-1/2 Kux
@@ -288,7 +290,7 @@ class FullyIndepStrat(Module):
         d = torch.clamp(d, min=default_jitter(X.dtype))
         return _finish(Luu, ok_uu, Kuf, _DiagLambda(d=d))
 
-    def predict_mvn(self, pd, kernel, X, r, alpha, Xs, full_cov):
+    def predict_mvn(self, pd, kernel, X, r, alpha, Xs, full_cov, blockindpred=None):
         return DeterminTrainCondStrat(inducing=self.inducing).predict_mvn(
             pd, kernel, X, r, alpha, Xs, full_cov)
 

@@ -25,6 +25,7 @@ its own, so that its vmap rule sees plain tensors too.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -33,15 +34,17 @@ import torch
 from . import cuda
 from .distance import safe_dist, sqdist
 
-__all__ = ["SE", "MAT12", "MAT32", "MAT52", "RQ", "PERIODIC", "LAUNCHES", "TILE",
+__all__ = ["SE", "MAT12", "MAT32", "MAT52", "RQ", "PERIODIC", "LAUNCHES", "LAUNCH_SHAPES", "TILE",
            "profile", "gram_derivs", "gram_plain", "gram_vjp_plain", "gram", "launch_gram",
            "launch_gram_vjp", "tile_count", "vjp_scratch_elems", "chain_count"]
 
 # profile families, numbered as in csrc/gram.cu
 SE, MAT12, MAT32, MAT52, RQ, PERIODIC = range(6)
 
-# kernel launches by name; each wrapper adds one where it launches
+# kernel launches by name; each wrapper adds one where it launches, here and
+# under the key (name, n1, n2) of the gram's shape in LAUNCH_SHAPES
 LAUNCHES = {"gram": 0, "gram_vjp": 0}
+LAUNCH_SHAPES = collections.Counter()
 
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
@@ -71,6 +74,17 @@ def profile(family: int, p: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown profile family {family}")
 
 
+def _rq_dlalpha(u: torch.Tensor, lz: torch.Tensor) -> torch.Tensor:
+    """u - lz = z/(1+z) - log1p(z), as the kernel computes it: below u =
+    0.05 the two terms cancel to ~-u^2/2 and their difference keeps only
+    ~eps/u of its relative accuracy, so there it is summed as
+    -u^2 sum_{k=2..17} u^(k-2)/k, whose terms share one sign."""
+    s = torch.full_like(u, 1.0 / 17.0)
+    for k in range(16, 1, -1):
+        s = s * u + 1.0 / k
+    return torch.where(u < 0.05, -u * u * s, u - lz)
+
+
 def gram_derivs(family: int, p: torch.Tensor, r2: torch.Tensor) -> tuple:
     """(K, dK/dll, dK/dextra, dK/dr2) of `family` at squared distance r2,
     in closed form (dK/dlsigma is 2K). dK/dr2 is 0 at r = 0 for the
@@ -87,7 +101,8 @@ def gram_derivs(family: int, p: torch.Tensor, r2: torch.Tensor) -> tuple:
         lz = torch.log1p(z)
         K = torch.exp(2.0 * lsigma - alpha * lz)
         q = 1.0 / (1.0 + z)
-        return K, 2.0 * K * alpha * z * q, K * alpha * (z * q - lz), -0.5 * K * il2 * q
+        return (K, 2.0 * K * alpha * z * q, K * alpha * _rq_dlalpha(z * q, lz),
+                -0.5 * K * il2 * q)
     if not 0 <= family <= PERIODIC:
         raise ValueError(f"unknown profile family {family}")
     pos = r2 > 0
@@ -294,6 +309,7 @@ def launch_gram(family: int, p: torch.Tensor, X1: torch.Tensor,
           out.data_ptr(), n1, n2, d, family, int(sym), chains or 1,
           *_strides(p, X1, X2, sym), int(grid))
     LAUNCHES["gram"] += 1
+    LAUNCH_SHAPES["gram", n1, n2] += 1
     return out
 
 
@@ -339,6 +355,7 @@ def launch_gram_vjp(family: int, p: torch.Tensor, X1: torch.Tensor, X2: torch.Te
           n1, n2, d, family, int(sym), int(need_dp), int(need_dx1), int(need_dx2),
           chains or 1, *_strides(p, X1, X2c, sym), int(grid))
     LAUNCHES["gram_vjp"] += 1
+    LAUNCH_SHAPES["gram_vjp", n1, n2] += 1
     return dp, dX1, dX2
 
 

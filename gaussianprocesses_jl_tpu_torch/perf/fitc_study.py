@@ -14,9 +14,10 @@ steps with a zero gradient), the loss read back each step.
 On the card it prints, for 2 warm-up and 6 timed steps: ms per step (CUDA
 events), one step's host enqueue and device-busy time and its split by
 kernel and by operator (torch.profiler), the loss trace (finite, falling),
-the gram and VJP launches a step (2 + 2: K(Xu) and K(Xu, X)), and the cross
-gram K(Xu, X) alone, 512 x 100 000, forward and VJP: own device time
-against the byte bound, time per call and the plain version's. The last
+the gram and VJP launches a step (2 + 2: K(Xu) and K(Xu, X), each shape
+counted), and the cross gram K(Xu, X) alone, 512 x 100 000, forward and
+VJP: own device time against the byte bound, time per call and the plain
+version's. The last
 line of its output is the numbers as one JSON object.
 
 `--f32-gap` measures on the CPU how far the f32 model's mll and gradient
@@ -168,14 +169,6 @@ def cross_gram(device) -> dict:
     return out
 
 
-def _launches(fn):
-    for name in gram_op.LAUNCHES:
-        gram_op.LAUNCHES[name] = 0
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (gram_op.LAUNCHES["gram"], gram_op.LAUNCHES["gram_vjp"])
-
-
 WARMUP, STEPS = 2, 6
 
 
@@ -184,7 +177,7 @@ def run(device) -> dict:
     its loss back; one step's launches, enqueue and device profile. Raises
     if a loss is not finite, the last is not below the first, or a step
     launches other than 2 + 2 kernels."""
-    from gaussianprocesses_jl_tpu_torch.perf.gram_study import enqueue_ms
+    from gaussianprocesses_jl_tpu_torch.perf.gram_study import enqueue_ms, launches
     from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
 
     t0 = time.perf_counter()
@@ -201,17 +194,19 @@ def run(device) -> dict:
         end.record()
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
-    _, launches = _launches(trainer.loss_and_grad)
+    _, n_launch = launches(trainer.loss_and_grad)
+    cross = (gram_op.LAUNCH_SHAPES["gram", M, N], gram_op.LAUNCH_SHAPES["gram_vjp", M, N])
     out = {"N": N, "m": M, "d": D_FEAT, "setup_s": setup_s, "losses": losses,
            "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
-           "gram_launches_per_step": launches[0], "gram_vjp_launches_per_step": launches[1],
+           "gram_launches_per_step": n_launch[0], "gram_vjp_launches_per_step": n_launch[1],
+           "cross_launches_per_step": cross,
            "enqueue_ms": enqueue_ms(trainer.loss_and_grad, reps=5),
            "peak_mib": torch.cuda.max_memory_allocated(device) / 2**20}
     print(f"FITC N={N} m={M}: losses {[round(v, 2) for v in losses]}; step "
           f"{out['step_ms_median']:.3f} ms (median of {STEPS}: "
-          f"{[round(v, 3) for v in step_ms]}); {launches[0]} gram + {launches[1]} gram_vjp "
-          f"launches a step; enqueue {out['enqueue_ms']:.3f} ms; peak "
-          f"{out['peak_mib']:.0f} MiB", flush=True)
+          f"{[round(v, 3) for v in step_ms]}); {n_launch[0]} gram + {n_launch[1]} gram_vjp "
+          f"launches a step, {cross[0]} + {cross[1]} of them K(Xu, X); enqueue "
+          f"{out['enqueue_ms']:.3f} ms; peak {out['peak_mib']:.0f} MiB", flush=True)
     busy, kernels, ops = device_profile(trainer.loss_and_grad, reps=3, top=12)
     out.update(busy_ms=busy, kernels=kernels, operators=ops)
     print(f"  one step's value and gradient: device busy {busy:.3f} ms", flush=True)
@@ -221,8 +216,9 @@ def run(device) -> dict:
             print(f"    {ms:9.4f} ms  {calls:3d} x {key[:90]}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"FITC: loss not finite or not falling: {losses}")
-    if launches != (2, 2):
-        raise RuntimeError(f"FITC: {launches} gram and gram_vjp launches a step, expected (2, 2)")
+    if n_launch != (2, 2) or cross != (1, 1):
+        raise RuntimeError(f"FITC: {n_launch} gram and gram_vjp launches a step ({cross} at "
+                           f"{M} x {N}), expected (2, 2) and (1, 1)")
     return out
 
 

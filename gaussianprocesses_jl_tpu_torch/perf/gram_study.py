@@ -39,13 +39,25 @@ from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
 
 __all__ = ["HBM_BYTES_PER_S", "F32_FLOPS", "F64_FLOPS", "gram_bound_ms", "gram_vjp_bound_ms",
            "time_ms", "enqueue_ms", "profile_ms", "forward", "backward_cases", "backward",
-           "batched"]
+           "batched", "launches"]
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12  # outside the tensor cores
 F64_FLOPS = 34e12
 D = 10
+
+
+def launches(fn):
+    """(fn(), (gram launches, gram_vjp launches)) of one call, the counts
+    (and `gram_op.LAUNCH_SHAPES`) set to 0 before it and read after it."""
+    for name in gram_op.LAUNCHES:
+        gram_op.LAUNCHES[name] = 0
+    gram_op.LAUNCH_SHAPES.clear()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, (gram_op.LAUNCHES["gram"], gram_op.LAUNCHES["gram_vjp"])
 
 
 def gram_bound_ms(n1, n2, d, itemsize, sym, chains=1, x_per_chain=False):

@@ -9,19 +9,39 @@ single-device path). `vi(method="adam", lr=0.05, nits=150)`.
     python -m gaussianprocesses_jl_tpu_torch.perf.vi_study             # on the card
     python -m gaussianprocesses_jl_tpu_torch.perf.vi_study --f32-gap   # on the CPU
 
-On the card: the ELBO before and after, ms per Adam step (CUDA events over
-the whole fit, and one step's host enqueue), the gram and VJP launches of
-the fit (1 + 0: the prior's factor is built once) and of each predictive
-(2 + 0: the factor and the cross gram), the rate exp(m + v / 2)'s
-correlation with the counts, and the latent predictive at the training
-points in f32 against the same Q in f64 on the card (the example warns that
-its n x n triangular solves are fragile in f32 at this n). `--f32-gap`
-measures that last distance on the CPU.
+On the card it prints:
+- the set-up (`make_neg_elbo`: the prior's factor and diag(K^-1)), timed
+  alone by CUDA events, cold and warm, and whether the f32 factor held,
+  on the card and on the CPU (with the plain gram's expansion of r2, and
+  by direct differences);
+- the fit through `vi`, its whole time (the process's first fit, then the
+  same fit again) and its launches (1 gram, no VJP);
+- ms per Adam step: the median of STEPS steps timed one by one by CUDA
+  events after WARMUP steps, and one step's host enqueue;
+- the ELBO before and after, the rate exp(m + v / 2)'s correlation with
+  the counts;
+- the negative ELBO's value and gradient at theta0 and at the fit, f32 on
+  the card against f64 at the same nugget (1e-4) on the card and against
+  f32 on the CPU, and f64 on the card against f64 on the CPU at both
+  nuggets (1e-4, and f64's own 1e-6), the CPU's gram by direct
+  differences as the kernel's;
+- the latent predictive at the training points from the fit's Q, on the
+  card and on the CPU: f32 against f64 at f32's nugget (f32 rounding
+  alone), f64 at 1e-4 against f64 at 1e-6 (the nugget alone), and the card
+  against the CPU.
+
+`--f32-gap` measures on the CPU what grounds chip_smoke's tolerances:
+whether the f32 factor holds there, and how far the f64 objective and
+predictive move on the observations permuted (the factorization's
+rounding) and with the gram by direct differences (the gram's rounding),
+with the nugget's effect on the predictive.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import statistics
 import sys
 import time
 
@@ -30,11 +50,15 @@ import torch
 
 import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.inference import vi as vi_mod
-from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
+from gaussianprocesses_jl_tpu_torch.models.gpa import gpa_nugget
+from gaussianprocesses_jl_tpu_torch.ops import distance
 
-__all__ = ["N", "NITS", "LR", "config3_data", "config3_model", "predictive_gap", "run"]
+__all__ = ["N", "NITS", "LR", "WARMUP", "STEPS", "F32_NUGGET", "config3_data", "config3_model",
+           "value_and_grad", "predictives", "factor_ok", "gap", "run", "f32_gap"]
 
 N, NITS, LR = 4096, 150, 0.05
+WARMUP, STEPS = 5, 30
+F32_NUGGET = gpa_nugget(torch.float32)  # 1e-4; f64's own is 1e-6
 
 
 def config3_data():
@@ -44,91 +68,242 @@ def config3_data():
     return t, rng.poisson(np.exp(f)).astype(float)
 
 
-def config3_model(device, dtype=np.float32):
+def config3_model(device, dtype=np.float32, perm=None):
+    """The model on `device` in `dtype`, its observations in `perm`'s order
+    where one is given."""
     t, y = config3_data()
+    if perm is not None:
+        t, y = t[perm], y[perm]
     return gp.GPA(t[:, None].astype(dtype), y.astype(dtype), gp.MeanZero(),
                   gp.Matern(1.5, np.log(0.5), 0.0), gp.PoisLik(), device=device)
 
 
-def predictive_gap(m32, m64, Q) -> dict:
-    """vi_predict_f at the training points from the f32 model and from the
-    f64 model at the same Q (cast): max|mu32 - mu64| / max|mu64| and
-    max|var32 - var64| / max|var64|."""
-    mu32, var32 = gp.vi_predict_f(m32, Q, m32.x)
-    Q64 = vi_mod.Approx(m=Q.m.double().to(m64.device), v=Q.v.double().to(m64.device))
-    mu64, var64 = gp.vi_predict_f(m64, Q64, m64.x)
-    mu32, var32 = mu32.double().cpu(), var32.double().cpu()
-    mu64, var64 = mu64.cpu(), var64.cpu()
-    return {"mean": float((mu32 - mu64).abs().max() / mu64.abs().max()),
-            "var": float((var32 - var64).abs().max() / var64.abs().max()),
-            "finite": bool(torch.isfinite(mu32).all() and torch.isfinite(var32).all())}
+def value_and_grad(neg_elbo, theta, like):
+    """neg_elbo's value and gradient at theta (cast to `like`'s dtype and
+    device), both in f64 on the host."""
+    th = theta.detach().to(like).requires_grad_()
+    val = neg_elbo(th)
+    (g,) = torch.autograd.grad(val, th)
+    return float(val.detach()), g.double().cpu().numpy()
 
 
-def _launches(fn):
-    for name in gram_op.LAUNCHES:
-        gram_op.LAUNCHES[name] = 0
+def gap(a, b) -> tuple:
+    """(|a0 - b0| / |b0|, max|a1 - b1| / max|b1|) of two (value, vector)
+    pairs, or of two (mean, variance) pairs as fractions of their max."""
+    def rel(x, y):
+        x, y = np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64)
+        return float(np.abs(x - y).max() / np.abs(y).max())
+
+    return rel(a[0], b[0]), rel(a[1], b[1])
+
+
+def predictives(Q, device, perm=None) -> dict:
+    """vi_predict_f at the training points from one Q on `device` (its
+    observations in `perm`'s order where given): "f32" (nugget 1e-4),
+    "f64_1e-4" and "f64" (its own 1e-6), each (mean, var) as f64 numpy."""
+    out = {}
+    for name, dtype, nugget in (("f32", np.float32, None), ("f64_1e-4", np.float64, F32_NUGGET),
+                                ("f64", np.float64, None)):
+        m = config3_model(device, dtype, perm)
+        Qd = vi_mod.Approx(m=Q.m.to(m.x), v=Q.v.to(m.x))
+        if perm is not None:
+            idx = torch.as_tensor(perm, device=m.x.device)
+            Qd = vi_mod.Approx(m=Qd.m[idx], v=Qd.v[idx])
+        mu, var = gp.vi_predict_f(m, Qd, m.x, nugget=nugget)
+        out[name] = (mu.double().cpu().numpy(), var.double().cpu().numpy())
+    return out
+
+
+def factor_ok(device) -> bool:
+    """Whether the f32 model's prior factor of K + 1e-4 I holds on `device`."""
+    return bool(vi_mod._prior_factor(config3_model(device))[0].ok)
+
+
+def _objectives(device):
+    """(neg_elbo, the model's inputs) of the f32 model and of the f64 model
+    at both nuggets."""
+    m32, m64 = config3_model(device), config3_model(device, np.float64)
+    return {"f32": (vi_mod.make_neg_elbo(m32)[0], m32.x),
+            "f64_1e-4": (vi_mod.make_neg_elbo(m64, F32_NUGGET)[0], m64.x),
+            "f64": (vi_mod.make_neg_elbo(m64)[0], m64.x)}
+
+
+def _events_ms(fn):
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     out = fn()
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return out, (gram_op.LAUNCHES["gram"], gram_op.LAUNCHES["gram_vjp"])
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def run(device) -> dict:
     """The fit and its checks' numbers (no thresholds here: chip_smoke holds
     them)."""
-    from gaussianprocesses_jl_tpu_torch.perf.gram_study import enqueue_ms
+    from gaussianprocesses_jl_tpu_torch.perf.gram_study import enqueue_ms, launches
 
     m = config3_model(device)
-    neg_elbo, theta0, _ = vi_mod.make_neg_elbo(m)
+    setup_ms = []
+    for _ in range(2):  # cold, then warm
+        (neg_elbo, theta0, _), ms = _events_ms(lambda: vi_mod.make_neg_elbo(m))
+        setup_ms.append(ms)
+    ok_card, ok_cpu = factor_ok(device), factor_ok("cpu")
+    with _direct_differences():
+        ok_cpu_direct = factor_ok("cpu")
     elbo0 = -float(neg_elbo(theta0))
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    Q, fit_launches = _launches(lambda: gp.vi(m, nits=NITS, method="adam", lr=LR))
-    end.record()
-    end.synchronize()
-    fit_ms = start.elapsed_time(end)
-    theta = torch.cat([Q.m, 0.5 * torch.log(Q.v)]).requires_grad_()
-    opt = torch.optim.Adam([theta], lr=LR)
+    fit_ms = []
+    for _ in range(2):  # the first fit of the process, then the same fit again
+        (Q, fit_launches), ms = _events_ms(
+            lambda: launches(lambda: gp.vi(m, nits=NITS, method="adam", lr=LR)))
+        fit_ms.append(ms)
+    theta_fit = torch.cat([Q.m, 0.5 * torch.log(Q.v)])
+
+    # the fit's step alone: Adam on the same objective, from the fit's end
+    theta = theta_fit.clone().requires_grad_()
+    opt = torch.optim.Adam([theta], lr=LR, eps=1e-8)
 
     def one_step():
         opt.zero_grad(set_to_none=True)
         neg_elbo(theta).backward()
         opt.step()
 
+    for _ in range(WARMUP):
+        one_step()
+    step_ms = [_events_ms(one_step)[1] for _ in range(STEPS)]
     step_enqueue = enqueue_ms(one_step, reps=10)
+
     elbo1 = float(gp.elbo(m, Q.m, Q.v))
     rate = torch.exp(Q.m + 0.5 * Q.v).cpu().numpy()
     corr = float(np.corrcoef(rate, m.y.cpu().numpy())[0, 1])
-    gap, pred_launches = _launches(lambda: predictive_gap(m, config3_model(device, np.float64),
-                                                          Q))
-    out = {"n": N, "nits": NITS, "elbo0": elbo0, "elbo": elbo1, "fit_ms": fit_ms,
-           "step_ms": fit_ms / NITS, "step_enqueue_ms": step_enqueue,
-           "fit_launches": fit_launches, "predict_launches": pred_launches, "rate_corr": corr,
-           "predictive_f32_vs_f64": gap}
-    print(f"VI Poisson n={N}: elbo {elbo0:.2f} -> {elbo1:.2f} in {NITS} Adam steps, "
-          f"{fit_ms:.1f} ms ({out['step_ms']:.3f} ms a step; one step's enqueue "
-          f"{step_enqueue:.3f} ms); launches: fit {fit_launches}, predictive (f32 and f64) "
-          f"{pred_launches}; rate corr {corr:.3f}; predictive f32 vs f64: mean "
-          f"{gap['mean']:.3e}, var {gap['var']:.3e} of max", flush=True)
+
+    # the objective at theta0 and at the fit, on the card and on the CPU
+    # (its gram by direct differences, as the kernel takes them)
+    card, obj_launches = launches(lambda: _objectives(device))
+    with _direct_differences():
+        cpu = _objectives("cpu")
+    objective = {}
+    for at, th in (("theta0", theta0), ("fit", theta_fit)):
+        c = {k: value_and_grad(f, th, like) for k, (f, like) in card.items()}
+        h = {k: value_and_grad(f, th, like) for k, (f, like) in cpu.items()}
+        objective[at] = {
+            "f32_card_vs_f64_card_1e-4": gap(c["f32"], c["f64_1e-4"]),
+            "f64_card_vs_cpu_1e-4": gap(c["f64_1e-4"], h["f64_1e-4"]),
+            "f64_card_vs_cpu": gap(c["f64"], h["f64"]),
+            "f32_card_vs_f32_cpu": gap(c["f32"], h["f32"]),
+            "finite": bool(all(np.isfinite(v[0]) and np.isfinite(v[1]).all()
+                               for v in c.values()))}
+    del card, cpu
+
+    # the predictive from the fit's Q, on the card and on the CPU
+    (pc, n_pred) = launches(lambda: predictives(Q, device))
+    with _direct_differences():
+        ph = predictives(Q, "cpu")
+    predictive = {
+        "card_f32_vs_f64_1e-4": gap(pc["f32"], pc["f64_1e-4"]),
+        "card_f64_1e-4_vs_f64_1e-6": gap(pc["f64_1e-4"], pc["f64"]),
+        "cpu_f32_vs_f64_1e-4": gap(ph["f32"], ph["f64_1e-4"]),
+        "f64_1e-4_card_vs_cpu": gap(pc["f64_1e-4"], ph["f64_1e-4"]),
+        "f64_card_vs_cpu": gap(pc["f64"], ph["f64"]),
+        "finite": bool(all(np.isfinite(a).all() for v in pc.values() for a in v))}
+    out = {"n": N, "nits": NITS, "elbo0": elbo0, "elbo": elbo1, "factor_ok": ok_card,
+           "cpu_f32_factor_ok": ok_cpu, "cpu_f32_factor_ok_direct": ok_cpu_direct,
+           "setup_ms": setup_ms, "fit_ms": fit_ms,
+           "step_ms": statistics.median(step_ms), "step_ms_all": step_ms, "step_enqueue_ms": step_enqueue,
+           "fit_launches": fit_launches, "objective_launches": obj_launches,
+           "predict_launches": n_pred, "rate_corr": corr, "objective": objective,
+           "predictive": predictive}
+    print(f"VI Poisson n={N}: set-up {setup_ms[0]:.1f} ms cold, {setup_ms[1]:.1f} ms warm "
+          f"(f32 factor held: {ok_card}, on the CPU {ok_cpu}, {ok_cpu_direct} by direct "
+          f"differences); elbo {elbo0:.2f} -> "
+          f"{elbo1:.2f} in {NITS} Adam steps, fit {fit_ms[0]:.1f} ms (again {fit_ms[1]:.1f} "
+          f"ms); step {out['step_ms']:.4f} ms (median of {STEPS} after {WARMUP}), enqueue "
+          f"{step_enqueue:.4f} ms; launches: fit {fit_launches}, objectives {obj_launches}, "
+          f"predictives {n_pred}; rate corr {corr:.3f}", flush=True)
+    for at, row in objective.items():
+        print(f"  neg_elbo at {at}: " + ", ".join(
+            f"{k} {v[0]:.3e} (gradient {v[1]:.3e} of max)" for k, v in row.items()
+            if k != "finite"), flush=True)
+    print("  predictive (mean, var) as fractions of max: " + ", ".join(
+        f"{k} {v}" for k, v in predictive.items()), flush=True)
     return out
 
 
 def f32_gap() -> dict:
-    """On the CPU: the f32 fit, then `predictive_gap` against f64."""
-    m32 = config3_model("cpu")
+    """On the CPU: whether the f32 prior's factor holds, with the plain
+    gram's expansion of r2 above its size budget and with direct
+    differences as the kernel takes them; a fit in f64 at the f32 nugget;
+    then, at theta0 and at that fit, the f64 objective (both nuggets) and
+    the predictive against themselves on the observations permuted (the
+    factorization's rounding) and with the gram by direct differences (the
+    gram's rounding: what sets f64 on the card apart from f64 on the CPU
+    otherwise); the f32 objective, by direct differences, against itself
+    permuted (f32 rounding) and against f64 at its nugget; the f32
+    predictive against f64 at its nugget, and the nugget's effect on the
+    predictive."""
     t0 = time.perf_counter()
-    Q = gp.vi(m32, nits=NITS, method="adam", lr=LR)
-    gap = predictive_gap(m32, config3_model("cpu", np.float64), Q)
-    print(f"VI Poisson n={N} on the CPU ({time.perf_counter() - t0:.1f} s): predictive f32 vs "
-          f"f64: mean {gap['mean']:.3e}, var {gap['var']:.3e} of max", flush=True)
-    return gap
+    perm = np.random.RandomState(5).permutation(N)
+    m64, p64 = config3_model("cpu", np.float64), config3_model("cpu", np.float64, perm)
+    neg_elbo, theta0, _ = vi_mod.make_neg_elbo(m64, F32_NUGGET)
+    theta = theta0.clone().requires_grad_()
+    opt = torch.optim.Adam([theta], lr=LR, eps=1e-8)
+    for _ in range(NITS):
+        opt.zero_grad(set_to_none=True)
+        neg_elbo(theta).backward()
+        opt.step()
+    theta = theta.detach()
+    Q = vi_mod.Approx(m=theta[:N], v=torch.exp(2.0 * theta[N:]))
+    pp = torch.as_tensor(np.concatenate([perm, N + perm]))
+    inv = np.argsort(perm)
+    out = {"cpu_f32_factor_ok": factor_ok("cpu")}
+    with _direct_differences():
+        out["cpu_f32_factor_ok_direct"] = factor_ok("cpu")
+        direct = {nugget: vi_mod.make_neg_elbo(m64, nugget)[0] for nugget in (F32_NUGGET, None)}
+        m32, p32 = config3_model("cpu"), config3_model("cpu", np.float32, perm)
+        f32, f32p = vi_mod.make_neg_elbo(m32)[0], vi_mod.make_neg_elbo(p32)[0]
+        pr_direct = predictives(Q, "cpu")
+    for at, th in (("theta0", theta0), ("fit", theta)):
+        a, b = value_and_grad(f32, th, m32.x), value_and_grad(f32p, th[pp], m32.x)
+        back = np.empty_like(b[1])
+        back[pp.numpy()] = b[1]
+        out[f"objective_f32_{at}_permuted_direct"] = gap(a, (b[0], back))
+        out[f"objective_f32_vs_f64_1e-4_{at}_direct"] = gap(
+            a, value_and_grad(direct[F32_NUGGET], th, m64.x))
+    out["predictive_f32_vs_f64_1e-4_direct"] = gap(pr_direct["f32"], pr_direct["f64_1e-4"])
+    for nugget, name in ((F32_NUGGET, "f64_1e-4"), (None, "f64")):
+        f, fp = vi_mod.make_neg_elbo(m64, nugget)[0], vi_mod.make_neg_elbo(p64, nugget)[0]
+        for at, th in (("theta0", theta0), ("fit", theta)):
+            a, b = value_and_grad(f, th, m64.x), value_and_grad(fp, th[pp], m64.x)
+            back = np.empty_like(b[1])
+            back[pp.numpy()] = b[1]
+            out[f"objective_{name}_{at}_permuted"] = gap(a, (b[0], back))
+            out[f"objective_{name}_{at}_direct"] = gap(
+                value_and_grad(direct[nugget], th, m64.x), a)
+    pr, pp_ = predictives(Q, "cpu"), predictives(Q, "cpu", perm)
+    for name in ("f64_1e-4", "f64"):
+        out[f"predictive_{name}_permuted"] = gap(pr[name], tuple(v[inv] for v in pp_[name]))
+        out[f"predictive_{name}_direct"] = gap(pr_direct[name], pr[name])
+    out["predictive_f64_1e-4_vs_f64_1e-6"] = gap(pr["f64_1e-4"], pr["f64"])
+    print(f"VI Poisson n={N} on the CPU ({time.perf_counter() - t0:.1f} s): "
+          + ", ".join(f"{k} {v}" for k, v in out.items()), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _direct_differences():
+    """The plain gram by direct differences at every size while open."""
+    budget = distance._EXACT_BROADCAST_BUDGET
+    distance._EXACT_BROADCAST_BUDGET = N * N
+    try:
+        yield
+    finally:
+        distance._EXACT_BROADCAST_BUDGET = budget
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--f32-gap", action="store_true",
-                    help="measure the f32 predictive's distance from f64 on the CPU")
+                    help="measure on the CPU what grounds chip_smoke's tolerances")
     args = ap.parse_args(argv)
     if args.f32_gap:
         print(json.dumps({"f32_gap": f32_gap()}))
@@ -137,6 +312,7 @@ def main(argv=None) -> int:
         print("vi_study: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
     print(json.dumps(run(torch.device("cuda"))))
     return 0
 

@@ -385,3 +385,37 @@ def test_vjp_launcher_refuses_what_the_kernel_does_not_take(bad):
     with pytest.raises(ValueError, match="CUDA" if bad == "device" else "cotangent"):
         gram_op.launch_gram_vjp(gram_op.SE, p, X, None, G)
     assert gram_op.LAUNCHES["gram_vjp"] == before
+
+
+@pytest.mark.parametrize("ll", [0.1, 8.0, 16.97], ids=["z_order_1", "z_1e-7", "z_1e-14"])
+def test_rq_dlalpha_keeps_its_accuracy_where_z_is_small(ll):
+    """RQ's dK/dlalpha = K alpha (z/(1+z) - log1p(z)) cancels to ~-K alpha
+    z^2/2 where z = r2 / (2 alpha l^2) is small, as for a switched-off RQ
+    term (Mauna Loa's optimum puts its length scale near e^17, z ~ 1e-11,
+    where the closed form keeps ~1e-5 of relative accuracy). The plain VJP's
+    dp for lalpha, and the derivative itself, against a 50-digit
+    reference (mpmath): rtol 1e-12 at every z."""
+    mpmath = pytest.importorskip("mpmath")
+    mpmath.mp.dps = 50
+    rng = np.random.RandomState(11)
+    x = np.sort(rng.uniform(0.0, 46.0, 30))
+    G = rng.randn(30, 30)
+    lalpha = -1.8
+    alpha = mpmath.exp(lalpha)
+    il2 = mpmath.exp(-2 * mpmath.mpf(ll))
+    ref_d = np.empty((30, 30))
+    for i in range(30):
+        for j in range(30):
+            z = (mpmath.mpf(x[i]) - mpmath.mpf(x[j])) ** 2 * il2 / (2 * alpha)
+            K = (1 + z) ** (-alpha)
+            ref_d[i, j] = float(K * alpha * (z / (1 + z) - mpmath.log1p(z)))
+    p = torch.tensor([0.0, ll, lalpha], dtype=torch.float64)
+    X = torch.as_tensor(x[:, None])
+    _, _, dex, _ = gram_op.gram_derivs(gram_op.RQ, p, gram_op.sqdist(X, X))
+    off = ~np.eye(30, dtype=bool)
+    np.testing.assert_allclose(dex.numpy()[off], ref_d[off], rtol=1e-12)
+    dp, _, _ = gram_op.gram_vjp_plain(gram_op.RQ, p, X, None, torch.as_tensor(G),
+                                      (True, False, False))
+    ref_dp = float(np.sum(G * ref_d))
+    np.testing.assert_allclose(float(dp[2]), ref_dp, rtol=1e-12,
+                               atol=1e-12 * float(np.sum(np.abs(G * ref_d))))

@@ -115,3 +115,57 @@ def test_vi_predict_matches_jax(full_cov):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-8)
     with pytest.raises(ValueError, match="must be"):
         load_approx(mt, m[:3], v)
+
+
+def test_nugget_option_defaults_to_the_one_vi_fits_with():
+    """make_neg_elbo and vi_predict_f with `nugget` given as the dtype's own
+    are the defaults, bit for bit; the f64 model at the f32 nugget (1e-4) is
+    the function the f32 model computes: the f32 model's negative ELBO
+    within rtol 1e-3 of it (3.1e-4 here: f32 rounding of diag(K^-1), whose
+    entries reach ~1/nugget), and at the f64 nugget (1e-6) it is another
+    function (more than 10x the f32 model's distance away)."""
+    from gaussianprocesses_jl_tpu_torch.models.gpa import gpa_nugget
+
+    _, mt = _pair()
+    X, y = _data()
+    m32 = gt.GPA(X.astype(np.float32), y.astype(np.float32), gt.MeanConst(beta=0.3),
+                 gt.Matern(1.5, 0.1, 0.2), gt.PoisLik(), device="cpu")
+    f, theta0, _ = tvi.make_neg_elbo(mt)
+    f_own = tvi.make_neg_elbo(mt, nugget=gpa_nugget(torch.float64))[0]
+    assert float(f(theta0)) == float(f_own(theta0))
+    Q = tvi.Approx(m=theta0[:25], v=torch.exp(2.0 * theta0[25:]))
+    xs = np.linspace(-2, 2, 7)[:, None]
+    for a, b in zip(gt.vi_predict_f(mt, Q, xs), gt.vi_predict_f(mt, Q, xs, nugget=1e-6)):
+        assert torch.equal(a, b)
+    f4 = tvi.make_neg_elbo(mt, nugget=gpa_nugget(torch.float32))[0]
+    f32 = tvi.make_neg_elbo(m32)[0]
+    v4, v32 = float(f4(theta0)), float(f32(theta0.float()))
+    np.testing.assert_allclose(v32, v4, rtol=1e-3)
+    assert abs(float(f(theta0)) - v4) > 10 * abs(v32 - v4)
+
+
+def test_vi_study_gap_measurements_at_a_small_size(monkeypatch):
+    """`perf/vi_study.py --f32-gap` at n = 200 (its card run needs CUDA):
+    the f64 objective and predictive move by rounding alone on the
+    observations permuted and with the gram by direct differences (under
+    1e-8 of their scale here), the f32 objective and predictive hold the
+    f64 ones to f32 rounding (under 1e-1), the nugget moves the
+    predictive's variance far more, and the plain gram's size budget is
+    given back."""
+    from gaussianprocesses_jl_tpu_torch.ops import distance
+    from gaussianprocesses_jl_tpu_torch.perf import vi_study
+
+    monkeypatch.setattr(vi_study, "N", 200)
+    monkeypatch.setattr(vi_study, "NITS", 5)
+    budget = distance._EXACT_BROADCAST_BUDGET
+    out = vi_study.f32_gap()
+    assert distance._EXACT_BROADCAST_BUDGET == budget
+    assert isinstance(out["cpu_f32_factor_ok"], bool)
+    assert out["cpu_f32_factor_ok_direct"]
+    for k, v in out.items():
+        if k.startswith(("objective_f64", "predictive_f64")) and k.endswith(
+                ("_permuted", "_direct")):
+            assert max(v) < 1e-8, (k, v)
+        elif k.startswith(("objective_f32", "predictive_f32")):
+            assert max(v) < 1e-1, (k, v)  # f32 rounding at n = 200
+    assert out["predictive_f64_1e-4_vs_f64_1e-6"][1] > 1e-4

@@ -91,10 +91,26 @@ Phases, each of which exits non-zero on the first failure:
  23. the notebook anchors (perf/anchors.py): robust regression, Poisson MCMC
      against VI, Mauna Loa by both optimizers, the sparse golden mlls and
      the regression quickstart, each anchor's gram launches then held
-     against the plain versions at their inputs.
-Phase 8 also times the batched kernels (C = 128, n = 200) and
-configuration #4's cross gram (512 x 100 000, perf/fitc_study.py) for the
-table.
+     against the plain versions at their inputs;
+ 24. configuration #5 at full width (perf/student_t_study.py: 1024 chains
+     of the Student-t GPA, n = 60, D = 63, f32) through `make_mesh()`, world
+     size 1: `sharded_hmc` (24 warmup iterations, mass updates at 12 and 18,
+     then 8), `sharded_split_hmc` (4 + 4 outer) and `sharded_ess` (10), with
+     their launches by kernel and shape; every gram and VJP launch of the
+     three, at C = 1024, n = 60, replayed against the plain versions in
+     f64; then 8 iterations with a checkpoint after 4, resumed from it, bit
+     for bit the uninterrupted run's;
+ 25. the elastic GP (perf/elastic_study.py): 4096 points in d = 10 appended
+     in blocks of 64 across three capacity crossings, f32 and f64, the
+     maintained factor's mll, alpha and factor against a fresh f64 GPE on
+     the CPU at each crossing and at the end; 2 gram launches an in-bucket
+     append; ms an append beside a refit's;
+ 26. the adapters: `GPRegressor` on the headline's data (maxiter=10) equal
+     to a GPE built and optimized the same way; score and
+     log_marginal_likelihood finite.
+Phase 8 also times the batched kernels (C = 128, n = 200; configuration
+#5's C = 1024, n = 60), configuration #4's cross gram (512 x 100 000,
+perf/fitc_study.py) and the elastic append's grams for the table.
 The kernel launch counts are set to 0 before each main-path call and read
 after it: one evaluation launches the forward and the VJP kernel once for
 each stationary gram (once for every chain of a vmapped batch), prediction
@@ -106,8 +122,10 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -124,8 +142,10 @@ from gaussianprocesses_jl_tpu_torch.ops.linalg import (
     tri_syrk_lower,
 )
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
-from gaussianprocesses_jl_tpu_torch.perf import (anchors, fitc_study, gpa_study, gram_study,
-                                                 single_parts, vi_study)
+from gaussianprocesses_jl_tpu_torch.parallel import chains
+from gaussianprocesses_jl_tpu_torch.perf import (anchors, elastic_study, fitc_study, gpa_study,
+                                                 gram_study, single_parts, student_t_study,
+                                                 vi_study)
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
     HBM_BYTES_PER_S,
@@ -224,7 +244,11 @@ def vjp_scales(family, p, X1, X2, G):
 
 def check_vjp(got, ref, scales, tol):
     """(max |got - ref|, max |got - ref| / (tol scale)) over the outputs asked
-    for; the second must not pass 1."""
+    for; the second must not pass 1. The bound has a floor of the output
+    dtype's smallest normal number over tol: where the f64 reference's
+    terms lie below f32's range (a sampler's chain far out in its kernel's
+    length scale and variance, K ~ 1e-93), f32 products underflow and the
+    result is right as 0."""
     err = ratio = 0.0
     for a, b, s in zip(got, ref, scales):
         if (a is None) != (b is None):
@@ -232,7 +256,8 @@ def check_vjp(got, ref, scales, tol):
         if a is not None:
             diff = (a - b).abs()
             err = max(err, float(diff.max()))
-            ratio = max(ratio, float((diff / (tol * s)).nan_to_num(0.0, posinf=math.inf).max()))
+            bound = tol * s + torch.finfo(a.dtype).tiny / tol
+            ratio = max(ratio, float((diff / bound).nan_to_num(0.0, posinf=math.inf).max()))
     return err, ratio
 
 
@@ -1478,6 +1503,184 @@ def phase_anchors(dev) -> dict:
     return out, tuple(total), errs
 
 
+# phase 24's depths at 1024 chains, cut from the bench's (PERF.md §4):
+# sharded_hmc 24 warmup (mass updates at 12 and 18) + 8, sharded_split_hmc
+# 4 + 4 outer, sharded_ess 10
+CONFIG5 = {"hmc": (24, 8), "split": (4, 4), "ess": 10}
+
+
+def phase_config5(dev) -> dict:
+    """Phase 24: configuration #5 at 1024 chains, f32, through `make_mesh()`
+    (one process: the card's machine has one card). sharded_hmc (eps0 0.02,
+    target 0.8): exactly 1 + 15 gram and gram_vjp launches an iteration at
+    60 x 60 (its start evaluation, then Lmax leapfrog steps), finite
+    targets, a step size moved from eps0, an adapted mass matrix; the split
+    sampler: exactly 17 + 16 an outer iteration; the ESS: forward launches
+    only. Every launch of the three kept by `captured_launches` is replayed
+    against the plain version in f64. Then 8 iterations (4 + 4) of
+    sharded_hmc three ways: whole; with a checkpoint written after 4 (the
+    run goes on to 8); resumed from that checkpoint: all three bit for bit
+    equal."""
+    mesh = gp.make_mesh()
+    print(f"  make_mesh(): world size 1, axis 'chains' of size {mesh.shape['chains']} on "
+          f"{mesh.device} (the machine has one card: no collective runs)")
+    C = student_t_study.CHAINS
+    logprob, x0, _, _ = student_t_study.config5_model(dev).make_logprob()
+    starts = student_t_study.chain_starts(x0, C, 17)
+    precompute, lp_a, lp_b, a0, b0 = student_t_study.config5_model(dev).make_split_logprob()
+    starts_s = student_t_study.chain_starts(torch.cat([a0, b0]), C, 3)
+    loglik, xg0, _, _ = student_t_study.config5_gpe(dev).make_logprob(include_priors=False)
+    starts_e = student_t_study.chain_starts(xg0, C, 2)
+    (hw, hn), (sw, sn), en = CONFIG5["hmc"], CONFIG5["split"], CONFIG5["ess"]
+    out = {}
+    with captured_launches() as seen:
+        for name, call, per_iter in (
+                ("sharded_hmc", lambda: chains.sharded_hmc(
+                    logprob, starts, 24, mesh, n_iter=hn, n_warmup=hw,
+                    eps0=student_t_study.EPS0, target_accept=student_t_study.TARGET),
+                 (15, 15)),
+                ("sharded_split_hmc", lambda: chains.sharded_split_hmc(
+                    precompute, lp_a, lp_b, starts_s, 24, mesh, a0.numel(), n_iter=sn,
+                    n_warmup=sw, a_iters=student_t_study.A_ITERS, eps_a0=student_t_study.EPS_A0,
+                    eps_b0=student_t_study.EPS_B0), (17, 16)),
+                ("sharded_ess", lambda: chains.sharded_ess(
+                    loglik, starts_e, student_t_study.PRIOR_MU, student_t_study.PRIOR_SIGMA, 24,
+                    mesh, n_iter=en), None)):
+            t0 = time.perf_counter()
+            res, n = launches(call)
+            secs = time.perf_counter() - t0
+            shapes = {f"{k[0]} {k[1]}x{k[2]}": v for k, v in sorted(gram_op.LAUNCH_SHAPES.items())}
+            iters = {"sharded_hmc": hw + hn, "sharded_split_hmc": sw + sn, "sharded_ess": en}[name]
+            print(f"  {name}, {C} chains, {iters} iterations: {secs:.3f} s "
+                  f"({1e3 * secs / iters:.1f} ms an iteration), launches {n}, by shape {shapes}",
+                  flush=True)
+            # sharded_hmc: its start evaluation, then Lmax evaluations an
+            # iteration; the ESS: forward only, one or more an iteration
+            if per_iter is None:
+                ok = n[1] == 0 and n[0] >= iters + 1
+            else:
+                start = 1 if name == "sharded_hmc" else 0
+                ok = n == tuple(start + per_iter[i] * iters for i in range(2))
+            if not ok or any(k[1:] != (60, 60) for k in gram_op.LAUNCH_SHAPES):
+                fail(f"{name}: launches {n} by shape {shapes}, expected {per_iter} an "
+                     f"iteration at 60 x 60")
+            out[name] = {"s": secs, "iters": iters, "launches": n, "by_shape": shapes,
+                         "result": res}
+    h, sp, e = (out[k]["result"] for k in ("sharded_hmc", "sharded_split_hmc", "sharded_ess"))
+    eps = float(h.eps_final)
+    print(f"  sharded_hmc: eps {student_t_study.EPS0} -> {eps:.5f}, minv in "
+          f"[{float(h.minv_final.min()):.4f}, {float(h.minv_final.max()):.4f}], accept "
+          f"{float(h.accept_rate.mean()):.3f}; split: eps_a {float(sp.eps_a_final):.5f}, eps_b "
+          f"{float(sp.eps_b_final):.5f}; ess: {float(e.mean_proposals):.3f} proposals an "
+          f"iteration")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        h.final_target, h.samples, sp.final_target, sp.samples, e.final_loglik, e.samples))
+    if not (finite and eps != student_t_study.EPS0 and not bool((h.minv_final == 1).all())):
+        fail("configuration #5: non-finite targets or draws, or no adaptation")
+    errs = check_captured("configuration #5", seen)
+
+    whole = chains.sharded_hmc(logprob, starts, 5, mesh, n_iter=4, n_warmup=4, eps0=0.02)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/config5.ckpt.npz"
+        written = chains.sharded_hmc(logprob, starts, 5, mesh, n_iter=4, n_warmup=4, eps0=0.02,
+                                     checkpoint_every=4, checkpoint_path=path)
+        resumed = chains.sharded_hmc(logprob, starts, 5, mesh, n_iter=4, n_warmup=4, eps0=0.02,
+                                     checkpoint_every=4, checkpoint_path=path)
+    fields = ("samples", "accept_rate", "eps_final", "minv_final", "final", "final_target")
+    same = {f: torch.equal(getattr(r, f), getattr(whole, f))
+            for r in (written, resumed) for f in fields}
+    print(f"  checkpointed after 4 of 8 iterations, and resumed from the file: bit for bit the "
+          f"uninterrupted run's: {all(same.values())}")
+    if not all(same.values()):
+        fail(f"configuration #5: a checkpointed or resumed run differs: {same}")
+    for row in out.values():
+        del row["result"]
+    out["max_abs_err"] = errs
+    out["launches"] = tuple(sum(out[k]["launches"][i] for k in
+                                ("sharded_hmc", "sharded_split_hmc", "sharded_ess"))
+                            for i in range(2))
+    return out
+
+
+# phase 25's tolerances on the maintained factor against a fresh f64 GPE on
+# the CPU, as (mll relative, alpha of max, factor of max). The CPU
+# (`elastic_study --f32-gap`) put the f64 model within 0, 9.5e-15 and
+# 2.4e-15 of it at n = 1024-4096, the f32 model within 8.1e-8, 4.4e-6 and
+# 1.5e-6 (its gram by the expansion of r2).
+ELASTIC_F64 = (1e-10, 1e-10, 1e-10)
+ELASTIC_F32 = (1e-6, 5e-5, 2e-5)
+
+
+def phase_elastic(dev) -> dict:
+    """Phase 25: the elastic GP (perf/elastic_study.py) grown to 4096 points
+    in blocks of 64 on the card, f32 and f64, across the capacity crossings
+    at 1024, 2048 and 3072: the maintained factor against a fresh f64 GPE
+    on the CPU at n = 1024, 2048, 3072 and 4096 (`ELASTIC_F64`,
+    `ELASTIC_F32`); exactly 2 gram launches (K(X, x_new) at n x 64 and
+    K(x_new) at 64 x 64) and no VJP an in-bucket append, 1 (the refit) at a
+    crossing; ms an append at n = 960 and 4032 beside one refit's at 1024
+    and 4096 (f32)."""
+    es = elastic_study
+    refs, out = {}, {}
+    total, by_shape = [0, 0], {"cross": 0, "block": 0}
+    for dtype, tol in ((torch.float64, ELASTIC_F64), (torch.float32, ELASTIC_F32)):
+        name = str(dtype)[6:]
+        res, n = launches(lambda: es.run(dev, dtype, refs))
+        total = [a + b for a, b in zip(total, n)]
+        for (kernel, n1, n2), count in gram_op.LAUNCH_SHAPES.items():
+            if kernel == "gram" and n2 == es.K:
+                by_shape["block" if n1 == es.K else "cross"] += count
+        crossings = [a["n"] for a in res["appends"] if a["crossing"]]
+        counts = {a["launches"] for a in res["appends"][1:] if not a["crossing"]}
+        cross_counts = {a["launches"] for a in res["appends"] if a["crossing"]}
+        print(f"  {name}: capacity {res['capacity']}, crossings at n = {crossings}; launches an "
+              f"in-bucket append {sorted(counts)}, a crossing {sorted(cross_counts)}")
+        if crossings != list(range(es.CAPACITY, es.N, es.STEPSIZE)) or counts != {(2, 0)} \
+                or cross_counts != {(1, 0)}:
+            fail(f"elastic {name}: crossings {crossings}, launches {counts} / {cross_counts}")
+        for n, g in res["gaps"].items():
+            within(f"elastic {name} at n={n} (mll, alpha) vs f64 CPU", g[:2], tol[:2])
+            within(f"elastic {name} at n={n} (alpha, factor) vs f64 CPU", g[1:], tol[1:])
+        ms = {a["n"]: a["ms"] for a in res["appends"]}
+        small, large = es.CAPACITY - es.K, es.N - es.K
+        out[name] = {"gaps": res["gaps"], f"append_ms_at_{small}": ms[small],
+                     f"append_ms_at_{large}": ms[large],
+                     "append_ms_median_last_bucket": statistics.median(
+                         a["ms"] for a in res["appends"]
+                         if a["n"] > es.N - es.STEPSIZE and not a["crossing"])}
+        if dtype == torch.float32:
+            for n in (es.CAPACITY, es.N):
+                out[name][f"refit_ms_{n}"] = es.refit_ms(res["model"], n)
+        print(f"  {name}: " + json.dumps({k: v for k, v in out[name].items() if k != "gaps"}))
+    out["launches"], out["launches_by_shape"] = tuple(total), by_shape
+    return out
+
+
+def phase_adapters(dev) -> tuple:
+    """Phase 26: GPRegressor (maxiter=10) on the headline's data in f32 on
+    the card: its predictions and standard deviations at 500 points equal,
+    bit for bit, those of a GPE built the same way and optimized with
+    maxiter=10; score and log_marginal_likelihood finite. Returns its
+    launches (fit and predict)."""
+    rng = np.random.RandomState(42)
+    Xh, yh = rng.randn(N_HEAD, D).astype(np.float32), rng.randn(N_HEAD).astype(np.float32)
+    Xs = np.random.RandomState(7).randn(500, D).astype(np.float32)
+    est = gp.GPRegressor(kernel=gp.SE(0.0, 0.0), lognoise=-1.0, maxiter=10)
+    (mu, sd), n = launches(lambda: est.fit(Xh, yh).predict(Xs, return_std=True))
+    m = gp.GPE(Xh, yh, gp.MeanZero(), gp.SE(0.0, 0.0), lognoise=-1.0)
+    m.optimize(maxiter=10)
+    mu_m, var_m = m.predict_y(Xs)
+    same = np.array_equal(mu, mu_m.cpu().numpy()) and np.array_equal(
+        sd, np.sqrt(var_m.cpu().numpy()))
+    score, lml = est.score(Xh, yh), est.log_marginal_likelihood()
+    print(f"  GPRegressor(maxiter=10) n={N_HEAD}: on {est.gp_.device}, {n[0]} gram and {n[1]} "
+          f"gram_vjp launches, predictions equal to the GPE's {same}, score {score:.6f}, "
+          f"log_marginal_likelihood {lml:.6f}")
+    if not (same and np.isfinite(score) and np.isfinite(lml) and est.gp_.device.type == "cuda"):
+        fail("GPRegressor: predictions differ from the GPE's, or non-finite score or mll")
+    return n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1569,6 +1772,7 @@ def main() -> int:
     # saw no kernel in a later profile of the same process (PERF.md §6)
     batched_rows = gram_study.batched(dev)
     cross_rows = fitc_study.cross_gram(dev)  # configuration #4's cross gram
+    new_rows = gram_study.new_shapes(dev)  # configuration #5's and the elastic append's
 
     mh = headline(np.float32, None)
     total = time_ms(mh.target_and_dtarget)
@@ -1652,23 +1856,34 @@ def main() -> int:
              lambda: phase_vi(dev)),
             ("21: cross-validation on the headline", lambda: phase_cv(dev)),
             ("22: optimize(method='optax') on the headline", lambda: phase_optax(dev)),
-            ("23: the notebook anchors", lambda: phase_anchors(dev))):
+            ("23: the notebook anchors", lambda: phase_anchors(dev)),
+            (f"24: configuration #5 at 1024 chains, card {card}", lambda: phase_config5(dev)),
+            ("25: the elastic GP across three capacity crossings", lambda: phase_elastic(dev)),
+            ("26: the adapters", lambda: phase_adapters(dev))):
         t0 = time.perf_counter()
         print(f"phase {label}", flush=True)
         new_launches.append(fn())
         print(f"phase {label.split(':')[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
     (n_fitc10k, fitc, (n_fsa, fsa_errs), vi_out, n_cv, n_optax,
-     (anchor_rows, n_anchors, anchor_errs)) = new_launches
+     (anchor_rows, n_anchors, anchor_errs), config5, elastic, n_adapters) = new_launches
     main_launches = [sum(col) for col in zip(
         main_launches, n_fitc10k, fitc["launches"], n_fsa, vi_out["fit_launches"],
-        vi_out["objective_launches"], vi_out["predict_launches"], n_cv, n_optax, n_anchors)]
-    for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs):
+        vi_out["objective_launches"], vi_out["predict_launches"], n_cv, n_optax, n_anchors,
+        config5["launches"], elastic["launches"], n_adapters)]
+    for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs,
+                 config5["max_abs_err"]):
         worst32 = max(worst32, errs["gram"])
         vjp_worst32 = max(vjp_worst32, errs["gram_vjp"])
     print("sparse, VI and anchors: " + json.dumps({"fitc_100k": fitc, "vi": vi_out,
                                                    "anchors": anchor_rows}))
+    print("configuration #5 and the elastic GP: " + json.dumps({"config5": config5,
+                                                               "elastic": elastic}))
 
     split_launches = samplers["split"]["launches"]
+    config5_by_shape = tuple(sum(config5[k]["by_shape"].get(f"{name} 60x60", 0) for k in
+                                 ("sharded_hmc", "sharded_split_hmc", "sharded_ess"))
+                             for name in ("gram", "gram_vjp"))
+    elastic_by_shape = elastic["launches_by_shape"]
     fwd, vjp = gram_rows[N_HEAD], vjp_rows["SE dp"]
     table = {"kernels": [{
         "name": "gram",
@@ -1690,6 +1905,13 @@ def main() -> int:
                     "launches": split_launches[0], "launches_per_outer_iteration": 17},
         "cross_512x100000": {**cross_rows["gram"], "launches": fitc["cross_launches"][0],
                              "max_abs_err": fitc["max_abs_err"]["gram"]},
+        "batched_1024x60x60": {**new_rows["config5 gram C=1024 n=60"],
+                               "launches": config5_by_shape[0],
+                               "max_abs_err": config5["max_abs_err"]["gram"]},
+        "elastic_cross_4032x64": {**new_rows["elastic cross gram 4032x64"],
+                                  "launches": elastic_by_shape["cross"]},
+        "elastic_block_64x64": {**new_rows["elastic block gram 64x64"],
+                                "launches": elastic_by_shape["block"]},
     }, {
         "name": "gram_vjp",
         "route": "cuda",
@@ -1713,6 +1935,9 @@ def main() -> int:
         "cross_512x100000": {**cross_rows["gram_vjp"],
                              "launches": fitc["cross_launches"][1],
                              "max_abs_err": fitc["max_abs_err"]["gram_vjp"]},
+        "batched_1024x60x60": {**new_rows["config5 gram_vjp dp C=1024 n=60"],
+                               "launches": config5_by_shape[1],
+                               "max_abs_err": config5["max_abs_err"]["gram_vjp"]},
     }]}
     study_src = {
         "se_gram_study": ("csrc/gram.cu", "perf/pallas_cholesky_study.py:102"),

@@ -8,7 +8,10 @@ the L-BFGS-B and on-device L-BFGS optimizers), the sparse SoR, DTC, FITC
 and FSA models, analytic cross-validation, GPA classification (the
 likelihoods, the whitened-latent GPA model, the HMC, split-HMC and
 elliptical-slice samplers over a batch of chains, the multi-chain ESS and
-R-hat) and mean-field variational inference. Stationary grams
+R-hat), mean-field variational inference, the elastic GP that grows by
+appends, the scikit-learn style `GPRegressor`, the plotting helpers,
+checkpoints, and process meshes on `torch.distributed` with the
+chain-sharded samplers of `parallel/`. Stationary grams
 run on hand-written CUDA kernels (`csrc/gram.cu`), one launch for every
 chain of a batch. Models run on the CUDA device unless built with
 `device="cpu"`. The Cholesky study (`perf/cholesky_study.py`) drives the
@@ -73,6 +76,7 @@ from .ops.likelihoods import (
 from .models.covariance import FullCovariance
 from .models.gpe import GPE, GP, GPEParams, noise_variance
 from .models.gpa import GPA, GPAParams
+from .models.elastic import ElasticGPE
 from .models.sparse import (
     SubsetOfRegsStrategy,
     DeterminTrainCondStrat,
@@ -97,8 +101,12 @@ from .inference.crossvalidation import (
 )
 from .inference.diagnostics import effective_sample_size, split_rhat
 from .utils import priors
+from .utils.checkpoint import save_checkpoint, load_checkpoint
 from .utils.params import Param
 from .utils.modules import Module
+from .plot import plot_gp, plot_gp_2d
+from .sklearn import GPRegressor
+from .parallel.mesh import make_mesh
 from .convert import load_approx, load_chains, load_flat, load_sparse
 
 __version__ = "0.1.0"

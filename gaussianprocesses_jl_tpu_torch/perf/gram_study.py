@@ -20,7 +20,11 @@ the path: `PYTHONPATH=<checkout> python3 <this file>`.
    gradient);
 3. batched: the GPA sampler's grams, 128 chains of Matern 3/2 ARD at
    n = 200, d = 5, f32, in one launch, forward and VJP (dp and dX), with the
-   same numbers as 1 and the vmapped plain versions.
+   same numbers as 1 and the vmapped plain versions;
+4. new shapes (`new_shapes`): configuration #5's grams, 1024 chains of SE
+   at n = 60, d = 1, the inputs shared and p per chain, forward and VJP
+   (dp); the elastic append's grams at d = 10, K(X, x_new) at 4032 x 64
+   and K(x_new) at 64 x 64, forward.
 The last line of its output is the numbers as one JSON object.
 """
 from __future__ import annotations
@@ -39,7 +43,7 @@ from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
 
 __all__ = ["HBM_BYTES_PER_S", "F32_FLOPS", "F64_FLOPS", "gram_bound_ms", "gram_vjp_bound_ms",
            "time_ms", "enqueue_ms", "profile_ms", "forward", "backward_cases", "backward",
-           "batched", "launches"]
+           "batched", "new_shapes", "launches"]
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -191,6 +195,61 @@ def backward(device, n=3000) -> dict:
     return out
 
 
+def _rows(cases, label="") -> dict:
+    """{name: row} of (name, call, kernel name to match, plain version,
+    (bound ms, bound by), extra keys, a callable one measured): own device
+    time, launches a call, time a call, host enqueue, bound and the plain
+    version's time, each printed after `label`."""
+    out = {}
+    for name, call, match, plain, (bound, by), extra in cases:
+        own, launches, _ = profile_ms(call, match=match)
+        extra = {k: (v() if callable(v) else v) for k, v in extra.items()}
+        out[name] = row = {**extra, "own_ms": own, "launches_per_call": launches,
+                           "call_ms": time_ms(call), "enqueue_ms": enqueue_ms(call),
+                           "bound_ms": bound, "bound_by": by, "plain_ms": time_ms(plain)}
+        print(f"{label}{name} f32: own {own:.4f} ms ({100 * bound / own:.1f}% of the {by} bound "
+              f"{bound:.4f} ms), call {row['call_ms']:.4f} ms, enqueue "
+              f"{row['enqueue_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms"
+              + (f", torch.cdist {row['cdist_ms']:.4f} ms" if "cdist_ms" in row else ""),
+              flush=True)
+    return out
+
+
+def new_shapes(device, chains=1024, n=60, n_el=4032, k=64, d_el=10) -> dict:
+    """The grams of configuration #5 (`chains` SE grams at n points in d = 1,
+    the inputs shared, p per chain, in one launch; the VJP for dp alone, as
+    the sampler's target asks) and of the elastic append (K(X, x_new) at
+    n_el x k and K(x_new) at k x k, d = 10), f32. Batched `torch.cdist`
+    beside configuration #5's forward."""
+    rng = np.random.RandomState(24)
+    f32 = dict(dtype=torch.float32, device=device)
+    X = torch.as_tensor(np.sort(2 * np.pi * rng.rand(n))[:, None], **f32)
+    P = torch.as_tensor(np.stack([0.3 * rng.randn(chains), 0.3 * rng.randn(chains),
+                                  np.zeros(chains)], axis=1), **f32)
+    G = torch.as_tensor(rng.randn(chains, n, n), **f32)
+    Xc = X.expand(chains, n, 1).contiguous()
+    Xe = torch.as_tensor(rng.randn(n_el, d_el), **f32)
+    Xk = torch.as_tensor(rng.randn(k, d_el), **f32)
+    p = torch.zeros(3, **f32)
+    se, dp = gram_op.SE, (True, False, False)
+    return _rows([
+        (f"config5 gram C={chains} n={n}", lambda: gram_op.launch_gram(se, P, X), "gram_kernel",
+         lambda: gram_op.gram_plain(se, P, X), gram_bound_ms(n, n, 1, 4, True, chains),
+         {"chains": chains, "n": n, "d": 1, "cdist_ms": lambda: time_ms(
+             lambda: torch.cdist(Xc, Xc))}),
+        (f"config5 gram_vjp dp C={chains} n={n}",
+         lambda: gram_op.launch_gram_vjp(se, P, X, None, G, dp), "gram_vjp",
+         lambda: gram_op.gram_vjp_plain(se, P, X, None, G, dp),
+         gram_vjp_bound_ms(n, n, 1, 4, True, False, chains), {"chains": chains, "n": n, "d": 1}),
+        (f"elastic cross gram {n_el}x{k}", lambda: gram_op.launch_gram(se, p, Xe, Xk),
+         "gram_kernel", lambda: gram_op.gram_plain(se, p, Xe, Xk),
+         gram_bound_ms(n_el, k, d_el, 4, False), {"n1": n_el, "n2": k, "d": d_el}),
+        (f"elastic block gram {k}x{k}", lambda: gram_op.launch_gram(se, p, Xk), "gram_kernel",
+         lambda: gram_op.gram_plain(se, p, Xk), gram_bound_ms(k, k, d_el, 4, True),
+         {"n1": k, "n2": k, "d": d_el}),
+    ])
+
+
 def batched(device) -> dict:
     """{"forward": {...}, "gram_vjp": {...}} for the GPA sampler's grams: C
     Matern 3/2 ARD grams in one launch, each chain's inputs scaled by its
@@ -206,27 +265,15 @@ def batched(device) -> dict:
     P[:, 1] = 0.0  # ARD: the length scales are in the inputs
     G = torch.as_tensor(rng.randn(chains, n, n), **f32)
     fam, needs = gram_op.MAT32, (True, True, False)
-    fwd = lambda: gram_op.launch_gram(fam, P, A)  # noqa: E731
-    vjp = lambda: gram_op.launch_gram_vjp(fam, P, A, None, G, needs)  # noqa: E731
-    out = {}
-    for name, call, match, plain, (bound, by), extra in (
-            ("forward", fwd, "gram_kernel", lambda: gram_op.gram_plain(fam, P, A),
-             gram_bound_ms(n, n, d, 4, True, chains, True),
-             {"cdist_ms": time_ms(lambda: torch.cdist(A, A))}),
-            ("gram_vjp", vjp, "gram_vjp", lambda: gram_op.gram_vjp_plain(fam, P, A, None, G,
-                                                                         needs),
-             gram_vjp_bound_ms(n, n, d, 4, True, True, chains, True), {})):
-        own, launches, _ = profile_ms(call, match=match)
-        row = {"chains": chains, "n": n, "d": d, "own_ms": own, "launches_per_call": launches,
-               "call_ms": time_ms(call), "enqueue_ms": enqueue_ms(call), "bound_ms": bound,
-               "bound_by": by, "plain_ms": time_ms(plain), **extra}
-        out[name] = row
-        print(f"batched {name} Mat32 ARD f32 C={chains} n={n} d={d}: own {own:.4f} ms "
-              f"({100 * bound / own:.1f}% of the {by} bound {bound:.4f} ms), call "
-              f"{row['call_ms']:.4f} ms, enqueue {row['enqueue_ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms"
-              + (f", torch.cdist {extra['cdist_ms']:.4f} ms" if extra else ""), flush=True)
-    return out
+    shape = {"chains": chains, "n": n, "d": d}
+    return _rows([
+        ("forward", lambda: gram_op.launch_gram(fam, P, A), "gram_kernel",
+         lambda: gram_op.gram_plain(fam, P, A), gram_bound_ms(n, n, d, 4, True, chains, True),
+         {**shape, "cdist_ms": lambda: time_ms(lambda: torch.cdist(A, A))}),
+        ("gram_vjp", lambda: gram_op.launch_gram_vjp(fam, P, A, None, G, needs), "gram_vjp",
+         lambda: gram_op.gram_vjp_plain(fam, P, A, None, G, needs),
+         gram_vjp_bound_ms(n, n, d, 4, True, True, chains, True), shape),
+    ], label=f"batched Mat32 ARD C={chains} n={n} d={d} ")
 
 
 def main(argv=None) -> int:
@@ -237,7 +284,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"package: {gp.__file__}", flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
-    result = {"forward": forward(dev), "backward": backward(dev), "batched": batched(dev)}
+    result = {"forward": forward(dev), "backward": backward(dev), "batched": batched(dev),
+              "new_shapes": new_shapes(dev)}
     print(json.dumps(result))
     return 0
 

@@ -66,6 +66,67 @@ def ess_draws(keys, n_iter, D, max_shrink):
     return starts, shrinks
 
 
+def sharded_hmc_draws(key, C, total, D, Lmin, Lmax):
+    """[(z (C, D), L (C,), u (C,))] for each iteration of the JAX package's
+    `sharded_hmc`: its chains' keys split(key, C), carried and folded with
+    the global iteration (`fold_in(keys, it)`) before each one."""
+    keys = jax.random.split(key, C)
+    out = []
+    for it in range(total):
+        keys = jax.vmap(jax.random.fold_in)(keys, jnp.full((C,), it))
+        out.append(hmc_draws(keys, D, Lmin, Lmax))
+    return out
+
+
+def sharded_split_draws(key, C, total, a_iters, D_a, D_b, Lmin, Lmax, Lmin_b, Lmax_b):
+    """For each outer iteration of the JAX package's `sharded_split_hmc`,
+    the HMC draws in the order the port asks for them (a_iters A updates,
+    then the B update): each chain's carried key folded with the iteration,
+    split(k, a_iters + 1), the A updates from [1:], the B update from [0]."""
+    keys = jax.random.split(key, C)
+    out = []
+    for it in range(total):
+        keys = jax.vmap(jax.random.fold_in)(keys, jnp.full((C,), it))
+        ks = jax.vmap(lambda k: jax.random.split(k, a_iters + 1))(keys)
+        out.append([hmc_draws(ks[:, 1 + j], D_a, Lmin, Lmax) for j in range(a_iters)]
+                   + [hmc_draws(ks[:, 0], D_b, Lmin_b, Lmax_b)])
+    return out
+
+
+def jax_target(logprob):
+    """A JAX log target (D,) -> () as a torch function that the port's
+    samplers batch with `torch.func.vmap(grad_and_value(...))`: its values
+    and gradients are the JAX package's own, so a sampler run on it differs
+    from the JAX sampler's only by the sampler's arithmetic. CPU f64."""
+    vg = jax.jit(jax.vmap(jax.value_and_grad(logprob)))
+
+    def call(theta):
+        v, g = vg(theta.detach().numpy())
+        return torch.tensor(np.asarray(v)), torch.tensor(np.asarray(g))
+
+    class Target(torch.autograd.Function):
+        @staticmethod
+        def forward(theta):
+            v, g = call(theta[None])
+            return v[0], g[0]
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.mark_non_differentiable(output[1])
+            ctx.save_for_backward(output[1])
+
+        @staticmethod
+        def backward(ctx, dv, dg):
+            (g,) = ctx.saved_tensors
+            return dv * g
+
+        @staticmethod
+        def vmap(info, in_dims, theta):
+            return call(theta.movedim(in_dims[0], 0)), (0, 0)
+
+    return lambda theta: Target.apply(theta)[0]
+
+
 class Replay(RandomStream):
     """A RandomStream that hands out given draws, in order."""
 

@@ -84,3 +84,21 @@ def test_check_captured_fails_on_a_kernel_off_its_tolerance(monkeypatch):
     _stand_ins(monkeypatch, off=1e-4)
     with pytest.raises(RuntimeError, match="disagrees with its plain version"):
         cs.check_captured("test", seen)
+
+
+def test_check_vjp_takes_underflow_as_zero_and_holds_the_rest():
+    """An f32 output of 0 where the f64 reference is ~1e-38 (every term
+    below f32's range: a chain far out in its length scale and variance)
+    passes; a gap of 1e-4 of the scale on ordinary values fails, in f32
+    and in f64."""
+    tiny = torch.tensor([[0.0, 3.98e-38, 0.0]], dtype=torch.float64)
+    _, ratio = cs.check_vjp((torch.zeros((1, 3)),), (tiny,), (torch.zeros((1, 3),
+                                                                           dtype=torch.float64),),
+                            1e-5)
+    assert ratio <= 1.0
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        ref = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
+        scale = torch.full((3,), 10.0, dtype=torch.float64)
+        got = (ref + 10 * tol * 10).to(dtype)
+        _, ratio = cs.check_vjp((got,), (ref,), (scale,), tol)
+        assert ratio > 1.0

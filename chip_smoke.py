@@ -107,10 +107,34 @@ Phases, each of which exits non-zero on the first failure:
      append; ms an append beside a refit's;
  26. the adapters: `GPRegressor` on the headline's data (maxiter=10) equal
      to a GPE built and optimized the same way; score and
-     log_marginal_likelihood finite.
+     log_marginal_likelihood finite;
+ 27. the distributed dense GPE (perf/parallel_study.py): the headline through
+     `DistributedFullCovariance(make_mesh({'j': 1}))` at n = 3000 (B = 500)
+     and 16384 (B = 512), f32, against `FullCovariance` f32 and f64 on the
+     card (and at 3000 f64 on the CPU), 1 + 1 launches an evaluation at the
+     n x n cross shape, its time beside `FullCovariance`'s; a non-PD K gives
+     -inf in f32 and f64; `optimize(maxiter=5)` and `predict_y`;
+ 28. configuration #2's GPA target on `DistributedFullCovariance(B=40)`
+     (5 tiles), vmapped over 128 chains (the latent map's custom VJP under
+     vmap: 1 + 1 launches at the cross shape), against the vmapped
+     `FullCovariance` target; 10 `sharded_hmc` iterations over
+     `AmbientFullCovariance` on make_pod_mesh({'j': 1});
+ 29. configuration #4 as the JAX bench runs it: `fitc_mll_sharded_fn` on
+     make_mesh({'data': 1}), Adam with the guard, 2 warm-up and 3 timed
+     steps (2 + 2 launches a step, a finite and falling loss), the start's
+     mll and gradient against `fitc_study`'s `LowRankPD` path;
+ 30. configuration #3 as its example runs it: `sharded_vi_train` at n = 4096
+     on make_mesh({'data': 1}), 150 steps, its ELBO trace against the
+     replicated Adam run step for step; `sharded_vi` with 8 restarts
+     (restart 0 against `vi(method="adam")`); one gram launch each fit;
+     `ring_gram` at n = 3000 (one launch, cross).
+Every gram and VJP launch of phases 27-30 is kept (`captured_launches`)
+and replayed against the plain versions in f64.
 Phase 8 also times the batched kernels (C = 128, n = 200; configuration
 #5's C = 1024, n = 60), configuration #4's cross gram (512 x 100 000,
-perf/fitc_study.py) and the elastic append's grams for the table.
+perf/fitc_study.py), the elastic append's grams and the distributed
+strategy's cross grams (n x n at 3000 and 16384; C = 128 at 200 x 200) for
+the table.
 The kernel launch counts are set to 0 before each main-path call and read
 after it: one evaluation launches the forward and the VJP kernel once for
 each stationary gram (once for every chain of a vmapped batch), prediction
@@ -119,6 +143,7 @@ only the forward. The last three lines are the kernel table (JSON), the card, an
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -144,8 +169,8 @@ from gaussianprocesses_jl_tpu_torch.ops.linalg import (
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
 from gaussianprocesses_jl_tpu_torch.parallel import chains
 from gaussianprocesses_jl_tpu_torch.perf import (anchors, elastic_study, fitc_study, gpa_study,
-                                                 gram_study, single_parts, student_t_study,
-                                                 vi_study)
+                                                 gram_study, parallel_study, single_parts,
+                                                 student_t_study, vi_study)
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
     HBM_BYTES_PER_S,
@@ -1237,7 +1262,7 @@ def phase_fitc_100k(dev) -> dict:
 
     _, n = launches(steps)
     shape = (fitc_study.M, fitc_study.N)
-    cross = tuple(gram_op.LAUNCH_SHAPES[(name, *shape)] for name in ("gram", "gram_vjp"))
+    cross = tuple(gram_op.LAUNCH_SHAPES[(name, *shape, True)] for name in ("gram", "gram_vjp"))
     print(f"FITC N={fitc_study.N}: set-up {setup_s:.2f} s, losses {losses}, step ms "
           f"{step_ms}, {n[0]} gram and {n[1]} gram_vjp launches ({cross[0]} and {cross[1]} "
           f"at {shape[0]} x {shape[1]}), peak "
@@ -1549,7 +1574,7 @@ def phase_config5(dev) -> dict:
             t0 = time.perf_counter()
             res, n = launches(call)
             secs = time.perf_counter() - t0
-            shapes = {f"{k[0]} {k[1]}x{k[2]}": v for k, v in sorted(gram_op.LAUNCH_SHAPES.items())}
+            shapes = gram_study.by_shape()
             iters = {"sharded_hmc": hw + hn, "sharded_split_hmc": sw + sn, "sharded_ess": en}[name]
             print(f"  {name}, {C} chains, {iters} iterations: {secs:.3f} s "
                   f"({1e3 * secs / iters:.1f} ms an iteration), launches {n}, by shape {shapes}",
@@ -1561,7 +1586,7 @@ def phase_config5(dev) -> dict:
             else:
                 start = 1 if name == "sharded_hmc" else 0
                 ok = n == tuple(start + per_iter[i] * iters for i in range(2))
-            if not ok or any(k[1:] != (60, 60) for k in gram_op.LAUNCH_SHAPES):
+            if not ok or any(k[1:3] != (60, 60) for k in gram_op.LAUNCH_SHAPES):
                 fail(f"{name}: launches {n} by shape {shapes}, expected {per_iter} an "
                      f"iteration at 60 x 60")
             out[name] = {"s": secs, "iters": iters, "launches": n, "by_shape": shapes,
@@ -1627,7 +1652,7 @@ def phase_elastic(dev) -> dict:
         name = str(dtype)[6:]
         res, n = launches(lambda: es.run(dev, dtype, refs))
         total = [a + b for a, b in zip(total, n)]
-        for (kernel, n1, n2), count in gram_op.LAUNCH_SHAPES.items():
+        for (kernel, n1, n2, _), count in gram_op.LAUNCH_SHAPES.items():
             if kernel == "gram" and n2 == es.K:
                 by_shape["block" if n1 == es.K else "cross"] += count
         crossings = [a["n"] for a in res["appends"] if a["crossing"]]
@@ -1679,6 +1704,153 @@ def phase_adapters(dev) -> tuple:
     if not (same and np.isfinite(score) and np.isfinite(lml) and est.gp_.device.type == "cuda"):
         fail("GPRegressor: predictions differ from the GPE's, or non-finite score or mll")
     return n
+
+
+# phase 27's bar: the headline's (value relative, gradient of max|g|), or
+# twice FullCovariance's own f32 gap from f64 at that size, the larger
+HEADLINE_BAR = (1e-3, 2e-2)
+# phase 28: phase 13's f32 tolerances (target relative, gradient of max|g|)
+GPA_TOL = (1e-4, 2e-3)
+# phase 29: phase 17's f32 card vs f32 CPU tolerances, here the sharded mll
+# against the LowRankPD path, both f32 on the card
+FITC_TOL = (1e-4, 1e-3)
+N_SHARDED_FITC_STEPS = 3
+# phase 30: the sharded ELBO trace against the replicated Adam run's, max
+# gap over 150 steps as a fraction of max|ELBO|: 5.8e-8 measured on an
+# H100 (f32; the two objectives sum log v as log v and as 2 rho)
+VI_TRACE_TOL = 1e-6
+
+
+def dist_table_rows(kernel):
+    """(table key, `parallel_study.gram_rows` name, `gram_study.by_shape`
+    name) of the distributed strategy's shapes for one gram kernel: the
+    headline's cross gram at n = 3000 and 16384 (phase 27; phase 30's ring
+    gram is 3000 x 3000 too) and configuration #2's batched cross gram at
+    C = 128 (phase 28; a batched launch counts once for its chains)."""
+    vjp = " dp" if kernel == "gram_vjp" else ""
+    C, n = gpa_study.CHAINS, gpa_study.N
+    return ([(f"cross_{m}x{m}", f"cross {kernel}{vjp} {m}x{m}", f"{kernel} cross {m}x{m}")
+             for m in (3000, 16384)]
+            + [(f"batched_cross_{C}x{n}x{n}", f"batched cross {kernel} C={C} {n}x{n}",
+                f"{kernel} cross {n}x{n}")])
+
+
+def dist_by_shape(dist) -> collections.Counter:
+    """Launches by shape of phases 27-30's main-path calls, each counted
+    from 0 around that call alone (`launches`): no reference, timing rep,
+    factor study or replay is in them."""
+    fit, vi_out = dist["dense"]["fit"], dist["vi"]
+    counts = collections.Counter()
+    for shapes in ([row["by_shape"] for row in dist["dense"]["sizes"]]
+                   + [fit["optimize_by_shape"], fit["predict_by_shape"],
+                      dist["gpa"]["by_shape"], dist["gpa"]["hmc_by_shape"],
+                      dist["fitc"]["by_shape"], vi_out["train_by_shape"],
+                      vi_out["restarts_by_shape"], vi_out["ring_by_shape"]]):
+        counts.update(shapes)
+    return counts
+
+
+def phase_dist_dense(dev) -> dict:
+    """Phase 27: the distributed dense GPE. At each size, the f32 target and
+    gradient on `DistributedFullCovariance` against `FullCovariance` f32 on
+    the card (`HEADLINE_BAR`), and against f64 on the card (and at n = 3000
+    f64 on the CPU) within the bar or twice `FullCovariance`'s own f32 gap
+    from that reference, the larger (both printed); exactly one launch of
+    each gram kernel an evaluation, at the n x n cross shape. A non-PD K is
+    -inf in f32 and f64; `optimize(maxiter=5)` rises from its start and
+    `predict_y` (2 forward launches) is finite."""
+    out = {"sizes": []}
+    total = [0, 0]
+    for n, B in parallel_study.DENSE_SIZES:
+        row = parallel_study.dense(dev, n, B)
+        within(f"distributed f32 vs FullCovariance f32 card, n={n}", row["dist32_vs_full32"],
+               HEADLINE_BAR)
+        for ref, name in (("full64", "f64 card"), ("full64_cpu", "f64 CPU")):
+            if f"dist32_vs_{ref}" not in row:
+                continue
+            own = row[f"full32_vs_{ref}"]
+            tol = tuple(max(b, 2 * g) for b, g in zip(HEADLINE_BAR, own))
+            print(f"  n={n} against FullCovariance {name}: the bar {HEADLINE_BAR}, twice "
+                  f"FullCovariance f32's own gap {tuple(2 * g for g in own)}")
+            within(f"distributed f32 vs FullCovariance {name}, n={n}", row[f"dist32_vs_{ref}"],
+                   tol)
+        want = {f"gram cross {n}x{n}": 1, f"gram_vjp cross {n}x{n}": 1}
+        if row["launches"] != (1, 1) or row["by_shape"] != want or not row["finite"]:
+            fail(f"distributed headline n={n}: launches {row['by_shape']}, expected {want}, "
+                 f"finite {row['finite']}")
+        total = [a + b for a, b in zip(total, row["launches"])]
+        out["sizes"].append(row)
+    out["nonpd"] = parallel_study.nonpd(dev)
+    if any(v != -math.inf for v in out["nonpd"].values()):
+        fail(f"a non-PD K on the distributed strategy: {out['nonpd']}, expected -inf")
+    fit = out["fit"] = parallel_study.dense_fit(dev)
+    if not (np.isfinite(fit["target_end"]) and fit["target_end"] >= fit["target_start"]
+            and fit["predict_finite"] and fit["predict_launches"] == (2, 0)
+            and min(fit["optimize_launches"]) >= 1):
+        fail(f"distributed optimize/predict_y: {fit}")
+    out["launches"] = tuple(a + b + c for a, b, c in zip(total, fit["optimize_launches"],
+                                                          fit["predict_launches"]))
+    return out
+
+
+def phase_dist_gpa(dev) -> dict:
+    """Phase 28: configuration #2's GPA target on
+    `DistributedFullCovariance(B=40)` vmapped over 128 chains (1 + 1
+    launches, batched cross 200 x 200) against the vmapped `FullCovariance`
+    target within `GPA_TOL` (every chain, relative to its own max|g|); then
+    10 `sharded_hmc` iterations over `AmbientFullCovariance` on
+    make_pod_mesh({'j': 1}): finite, 1 + 5 evaluations an iteration."""
+    out = parallel_study.gpa(dev)
+    within("distributed GPA vs FullCovariance, vmapped", (out["target_rel"],
+                                                          out["gradient_rel"]), GPA_TOL)
+    n = gpa_study.N
+    want_hmc = 1 + 5 * parallel_study.HMC_ITERS
+    cross = (f"gram cross {n}x{n}", f"gram_vjp cross {n}x{n}")
+    if (out["launches"] != (1, 1) or out["by_shape"] != dict.fromkeys(cross, 1)
+            or not out["hmc_finite"] or out["hmc_by_shape"] != dict.fromkeys(cross, want_hmc)):
+        fail(f"distributed GPA: {out}")
+    out["total_launches"] = tuple(a + b for a, b in zip(out["launches"], out["hmc_launches"]))
+    return out
+
+
+def phase_sharded_fitc(dev) -> dict:
+    """Phase 29: configuration #4 through `fitc_mll_sharded_fn` on
+    make_mesh({'data': 1}): the start's mll and gradient against the
+    LowRankPD path's within `FITC_TOL`; 2 + N_SHARDED_FITC_STEPS Adam steps,
+    exactly 2 + 2 launches a timed step, 1 + 1 of them at 512 x 100 000, a
+    finite and falling loss."""
+    out = parallel_study.fitc(dev, steps=N_SHARDED_FITC_STEPS)
+    within("sharded FITC start vs LowRankPD", out["start_vs_lowrank"], FITC_TOL)
+    k = N_SHARDED_FITC_STEPS
+    if out["launches"] != (2 * k, 2 * k) or out["cross_launches"] != (k, k):
+        fail(f"sharded FITC: launches {out['launches']} ({out['cross_launches']} at the cross "
+             f"shape), expected 2 + 2 a step, 1 + 1 of them K(Xu, X)")
+    losses = out["losses"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"sharded FITC: loss not finite or not falling: {losses}")
+    return out
+
+
+def phase_sharded_vi(dev) -> dict:
+    """Phase 30: configuration #3 through `sharded_vi_train` (n = 4096, 150
+    steps): its ELBO trace within `VI_TRACE_TOL` of the replicated Adam
+    run's at every step, and rising; `sharded_vi` with 8 restarts: restart
+    0's final ELBO that of vi(method="adam") within 1e-6; one gram launch
+    (the prior's, n x n) each fit; `ring_gram` at n = 3000 equal to
+    `kernel.gram` within 1e-5 sigma^2 (one launch, cross)."""
+    out = parallel_study.vi(dev)
+    n = out["n"]
+    ok = (out["trace_vs_replicated"] <= VI_TRACE_TOL and out["trace_last"] > out["trace_first"]
+          and out["restart0_vs_vi"] <= 1e-6 and out["ring_launches"] == (1, 0)
+          and out["ring_by_shape"] == {"gram cross 3000x3000": 1}
+          and out["train_by_shape"] == out["restarts_by_shape"] == {f"gram {n}x{n}": 1}
+          and out["ring_vs_gram"] <= 1e-5)
+    print(f"  sharded VI: trace gap {out['trace_vs_replicated']:.3e} (tol {VI_TRACE_TOL:g}), "
+          f"restart 0 vs vi {out['restart0_vs_vi']:.3e} (tol 1e-6), ring_gram "
+          f"{out['ring_vs_gram']:.3e} (tol 1e-5): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"sharded VI: {out}")
+    return out
 
 
 def main() -> int:
@@ -1773,6 +1945,7 @@ def main() -> int:
     batched_rows = gram_study.batched(dev)
     cross_rows = fitc_study.cross_gram(dev)  # configuration #4's cross gram
     new_rows = gram_study.new_shapes(dev)  # configuration #5's and the elastic append's
+    dist_rows = parallel_study.gram_rows(dev)  # the distributed strategy's cross grams
 
     mh = headline(np.float32, None)
     total = time_ms(mh.target_and_dtarget)
@@ -1866,12 +2039,38 @@ def main() -> int:
         print(f"phase {label.split(':')[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
     (n_fitc10k, fitc, (n_fsa, fsa_errs), vi_out, n_cv, n_optax,
      (anchor_rows, n_anchors, anchor_errs), config5, elastic, n_adapters) = new_launches
+
+    # 27-30. the distributed dense and sparse paths, every launch kept
+    dist = {}
+    for key, label, fn in (
+            ("dense", f"27: the distributed dense GPE, card {card}", phase_dist_dense),
+            ("gpa", "28: the distributed GPA under vmap", phase_dist_gpa),
+            ("fitc", f"29: configuration #4 through fitc_mll_sharded_fn, card {card}",
+             phase_sharded_fitc),
+            ("vi", f"30: configuration #3 through sharded_vi_train, card {card}",
+             phase_sharded_vi)):
+        t0 = time.perf_counter()
+        print(f"phase {label}", flush=True)
+        with captured_launches() as seen:
+            dist[key] = fn(dev)
+        dist[key]["max_abs_err"] = check_captured(f"phase {label.split(':')[0]}", seen)
+        del seen
+        print(f"phase {label.split(':')[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
+    dist_shapes = dist_by_shape(dist)
+    dist_launches = [sum(col) for col in zip(
+        dist["dense"]["launches"], dist["gpa"]["total_launches"], dist["fitc"]["launches"],
+        *(dist["vi"][k] for k in ("train_launches", "restarts_launches", "ring_launches")))]
+    if [sum(v for k, v in dist_shapes.items() if k.split()[0] == name)
+            for name in ("gram", "gram_vjp")] != dist_launches:
+        fail(f"phases 27-30: launches by shape {dict(dist_shapes)} do not sum to {dist_launches}")
+    print("distributed dense and sparse paths: " + json.dumps(dist))
     main_launches = [sum(col) for col in zip(
         main_launches, n_fitc10k, fitc["launches"], n_fsa, vi_out["fit_launches"],
         vi_out["objective_launches"], vi_out["predict_launches"], n_cv, n_optax, n_anchors,
-        config5["launches"], elastic["launches"], n_adapters)]
+        config5["launches"], elastic["launches"], n_adapters, dist_launches)]
+    dist_errs = {k: max(dist[p]["max_abs_err"][k] for p in dist) for k in ("gram", "gram_vjp")}
     for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs,
-                 config5["max_abs_err"]):
+                 config5["max_abs_err"], dist_errs):
         worst32 = max(worst32, errs["gram"])
         vjp_worst32 = max(vjp_worst32, errs["gram_vjp"])
     print("sparse, VI and anchors: " + json.dumps({"fitc_100k": fitc, "vi": vi_out,
@@ -1912,6 +2111,9 @@ def main() -> int:
                                   "launches": elastic_by_shape["cross"]},
         "elastic_block_64x64": {**new_rows["elastic block gram 64x64"],
                                 "launches": elastic_by_shape["block"]},
+        **{f"distributed_{key}": {**dist_rows[name], "launches": dist_shapes[shape],
+                                  "max_abs_err": dist_errs["gram"]}
+           for key, name, shape in dist_table_rows("gram")},
     }, {
         "name": "gram_vjp",
         "route": "cuda",
@@ -1938,6 +2140,9 @@ def main() -> int:
         "batched_1024x60x60": {**new_rows["config5 gram_vjp dp C=1024 n=60"],
                                "launches": config5_by_shape[1],
                                "max_abs_err": config5["max_abs_err"]["gram_vjp"]},
+        **{f"distributed_{key}": {**dist_rows[name], "launches": dist_shapes[shape],
+                                  "max_abs_err": dist_errs["gram_vjp"]}
+           for key, name, shape in dist_table_rows("gram_vjp")},
     }]}
     study_src = {
         "se_gram_study": ("csrc/gram.cu", "perf/pallas_cholesky_study.py:102"),

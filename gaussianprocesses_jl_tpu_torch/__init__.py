@@ -11,7 +11,9 @@ elliptical-slice samplers over a batch of chains, the multi-chain ESS and
 R-hat), mean-field variational inference, the elastic GP that grows by
 appends, the scikit-learn style `GPRegressor`, the plotting helpers,
 checkpoints, and process meshes on `torch.distributed` with the
-chain-sharded samplers of `parallel/`. Stationary grams
+chain-sharded samplers, the distributed dense Cholesky
+(`DistributedFullCovariance`), the ring gram, the observation-sharded FITC
+and the sharded VI of `parallel/`. Stationary grams
 run on hand-written CUDA kernels (`csrc/gram.cu`), one launch for every
 chain of a batch. Models run on the CUDA device unless built with
 `device="cpu"`. The Cholesky study (`perf/cholesky_study.py`) drives the
@@ -107,6 +109,9 @@ from .utils.modules import Module
 from .plot import plot_gp, plot_gp_2d
 from .sklearn import GPRegressor
 from .parallel.mesh import make_mesh
+from .parallel.dense import DistributedFullCovariance
+from .parallel.gram import ring_gram
+from .parallel.vi import sharded_vi, sharded_elbo, sharded_vi_train
 from .convert import load_approx, load_chains, load_flat, load_sparse
 
 __version__ = "0.1.0"

@@ -16,13 +16,18 @@ the sparse strategy of a JAX model (its class name, its inducing points and,
 for FSA, its padded partition, all as numpy or tuples), and
 `load_approx(gp, m, v)` carries a JAX `Approx`'s (m, v) into the port's
 `Approx`, each on `gp`'s device and in its dtype.
+
+`load_distributed(gp, kind, mesh, axis, B, P_)` gives a port model the
+distributed dense strategy of a JAX model (`DistributedFullCovariance` or
+`AmbientFullCovariance`, with its axis and tile size) over a port `Mesh`;
+`P_`, the JAX axis size, must be the port mesh's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["load_flat", "load_chains", "load_sparse", "load_approx"]
+__all__ = ["load_flat", "load_chains", "load_sparse", "load_approx", "load_distributed"]
 
 
 def _checked(obj, arr, names, ndim):
@@ -91,3 +96,27 @@ def load_approx(gp, m, v):
     if m.shape != (gp.nobs,) or v.shape != (gp.nobs,):
         raise ValueError(f"m and v must be ({gp.nobs},), got {m.shape} and {v.shape}")
     return Approx(m=gp._tensor(m), v=gp._tensor(v))
+
+
+_DISTRIBUTED = ("DistributedFullCovariance", "AmbientFullCovariance")
+
+
+def load_distributed(gp, kind, mesh, axis="j", B=None, P_=None):
+    """`gp` (a GPE or GPA) with the port's strategy named `kind` over `mesh`
+    axis `axis` with tile size B (None: chosen at build time; the ambient
+    strategy needs one). P_ is the JAX strategy's axis size (its mesh's, or
+    the ambient strategy's P_): it must equal the port mesh's."""
+    from .parallel import dense
+
+    if kind not in _DISTRIBUTED:
+        raise ValueError(f"unknown distributed strategy {kind!r}")
+    if axis not in mesh.shape:
+        raise ValueError(f"the mesh has no axis {axis!r}: {mesh.axis_names}")
+    if P_ is not None and P_ != mesh.shape[axis]:
+        raise ValueError(f"the JAX strategy spans {P_} devices on {axis!r}, the mesh "
+                         f"{mesh.shape[axis]} processes")
+    if kind == "AmbientFullCovariance" and B is None:
+        raise ValueError("AmbientFullCovariance needs a tile size B")
+    kw = {} if B is None else {"B": int(B)}
+    gp.covstrat = getattr(dense, kind)(mesh, axis=axis, **kw)
+    return gp

@@ -42,7 +42,8 @@ __all__ = ["SE", "MAT12", "MAT32", "MAT52", "RQ", "PERIODIC", "LAUNCHES", "LAUNC
 SE, MAT12, MAT32, MAT52, RQ, PERIODIC = range(6)
 
 # kernel launches by name; each wrapper adds one where it launches, here and
-# under the key (name, n1, n2) of the gram's shape in LAUNCH_SHAPES
+# under the key (name, n1, n2, cross) of the gram's shape and walk (cross:
+# X2 given) in LAUNCH_SHAPES
 LAUNCHES = {"gram": 0, "gram_vjp": 0}
 LAUNCH_SHAPES = collections.Counter()
 
@@ -309,7 +310,7 @@ def launch_gram(family: int, p: torch.Tensor, X1: torch.Tensor,
           out.data_ptr(), n1, n2, d, family, int(sym), chains or 1,
           *_strides(p, X1, X2, sym), int(grid))
     LAUNCHES["gram"] += 1
-    LAUNCH_SHAPES["gram", n1, n2] += 1
+    LAUNCH_SHAPES["gram", n1, n2, not sym] += 1
     return out
 
 
@@ -355,7 +356,7 @@ def launch_gram_vjp(family: int, p: torch.Tensor, X1: torch.Tensor, X2: torch.Te
           n1, n2, d, family, int(sym), int(need_dp), int(need_dx1), int(need_dx2),
           chains or 1, *_strides(p, X1, X2c, sym), int(grid))
     LAUNCHES["gram_vjp"] += 1
-    LAUNCH_SHAPES["gram_vjp", n1, n2] += 1
+    LAUNCH_SHAPES["gram_vjp", n1, n2, not sym] += 1
     return dp, dX1, dX2
 
 

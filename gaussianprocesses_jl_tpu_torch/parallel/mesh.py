@@ -27,6 +27,8 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from .collectives import all_gather
+
 __all__ = ["Mesh", "make_mesh", "make_pod_mesh", "initialize_distributed"]
 
 
@@ -42,15 +44,11 @@ class Mesh:
     groups: dict
     device: torch.device
 
-    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """x (c, ...) from every process along `axis`, concatenated in the
-        axis's order: (size * c, ...). On an axis of size 1, x itself."""
-        group = self.groups[axis]
-        if group is None:
-            return x
-        parts = [torch.empty_like(x) for _ in range(self.shape[axis])]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts)
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """x from every process along `axis`, concatenated along `dim` in the
+        axis's order: (size * c, ...) for x (c, ...). On an axis of size 1, x
+        itself. Differentiable (`collectives.all_gather`)."""
+        return all_gather(x, self, axis, dim)
 
 
 def _world() -> tuple:

@@ -195,7 +195,8 @@ def run(device) -> dict:
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
     _, n_launch = launches(trainer.loss_and_grad)
-    cross = (gram_op.LAUNCH_SHAPES["gram", M, N], gram_op.LAUNCH_SHAPES["gram_vjp", M, N])
+    cross = (gram_op.LAUNCH_SHAPES["gram", M, N, True],
+             gram_op.LAUNCH_SHAPES["gram_vjp", M, N, True])
     out = {"N": N, "m": M, "d": D_FEAT, "setup_s": setup_s, "losses": losses,
            "step_ms": step_ms, "step_ms_median": float(np.median(step_ms)),
            "gram_launches_per_step": n_launch[0], "gram_vjp_launches_per_step": n_launch[1],

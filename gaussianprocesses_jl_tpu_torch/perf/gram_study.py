@@ -64,6 +64,13 @@ def launches(fn):
     return out, (gram_op.LAUNCHES["gram"], gram_op.LAUNCHES["gram_vjp"])
 
 
+def by_shape() -> dict:
+    """`gram_op.LAUNCH_SHAPES` by name: {"gram 60x60": launches, "gram cross
+    512x100000": launches, ...}, "cross" where the launch walked K(X1, X2)."""
+    return {f"{k}{' cross' if cross else ''} {n1}x{n2}": v
+            for (k, n1, n2, cross), v in sorted(gram_op.LAUNCH_SHAPES.items())}
+
+
 def gram_bound_ms(n1, n2, d, itemsize, sym, chains=1, x_per_chain=False):
     """Least time for one gram (or `chains` grams in one launch, their
     inputs per chain or shared): inputs read once and the output written

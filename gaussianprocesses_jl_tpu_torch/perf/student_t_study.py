@@ -52,6 +52,7 @@ from gaussianprocesses_jl_tpu_torch.parallel import (
     sharded_hmc,
     sharded_split_hmc,
 )
+from gaussianprocesses_jl_tpu_torch.perf.gram_study import by_shape
 from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
 from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
 
@@ -172,7 +173,7 @@ def run_ess(dev, chains=CHAINS, n_iter=ESS_ITERS) -> dict:
 
 def one_iteration(dev, name, call) -> dict:
     """One call of a sampler over one iteration: launches by kernel and by
-    (kernel, n1, n2), host enqueue, CUDA-event time and device-busy time
+    `gram_study.by_shape`, host enqueue, CUDA-event time and device-busy time
     (None where torch.profiler saw no kernel)."""
     call()
     torch.cuda.synchronize()
@@ -187,8 +188,7 @@ def one_iteration(dev, name, call) -> dict:
     enqueue = 1e3 * (time.perf_counter() - t0)
     end.synchronize()
     out = {"launches": dict(gram_op.LAUNCHES),
-           "launches_by_shape": {" ".join(map(str, k)): v
-                                 for k, v in sorted(gram_op.LAUNCH_SHAPES.items())},
+           "launches_by_shape": by_shape(),
            "enqueue_ms": enqueue, "event_ms": start.elapsed_time(end)}
     busy, kernels, ops = device_profile(call, reps=1, top=8)
     out.update(busy_ms=busy if kernels else None, kernels=kernels, operators=ops)

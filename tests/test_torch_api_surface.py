@@ -1,8 +1,6 @@
 """The port's top-level namespace covers the JAX package's: the
 reference's export list and the JAX package's additions, as
-tests/test_api_surface.py lists them, less the distributed dense and
-sparse paths that are not ported yet (`DistributedFullCovariance`,
-`ring_gram`, `sharded_vi*`)."""
+tests/test_api_surface.py lists them."""
 import gaussianprocesses_jl_tpu_torch as gp
 
 REFERENCE_SURFACE = [
@@ -27,7 +25,8 @@ ADDITIONS = [
     "save_checkpoint", "load_checkpoint",
     "plot_gp", "plot_gp_2d", "GPRegressor",
     "vi_predict_f", "vi_predict_y", "Param", "Module", "priors",
-    "make_mesh",
+    "make_mesh", "DistributedFullCovariance", "ring_gram",
+    "sharded_vi", "sharded_elbo", "sharded_vi_train",
 ]
 
 
@@ -48,6 +47,11 @@ def test_parallel_exports_what_is_ported():
         assert hasattr(parallel, name), name
     assert {"make_mesh", "make_pod_mesh", "initialize_distributed", "sharded_hmc",
             "sharded_split_hmc", "sharded_ess"} <= set(parallel.__all__)
+    # everything the JAX package's parallel/__init__.py exports
+    assert {"build_tiles", "choose_tile_size", "distributed_cholesky", "distributed_chol_solve",
+            "distributed_mll", "distributed_quad_logdet", "distributed_solve_lower",
+            "distributed_solve_upper", "distributed_unwhiten", "tile_and_shard", "untile",
+            "DistributedFullCovariance", "DistributedPD", "ring_gram"} <= set(parallel.__all__)
 
 
 def test_model_methods():

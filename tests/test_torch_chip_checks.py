@@ -25,12 +25,14 @@ def _stand_ins(monkeypatch, off=0.0):
     versions, the forward `off` from it."""
     def gram(family, p, X1, X2=None, grid=0):
         gram_op.LAUNCHES["gram"] += 1
-        gram_op.LAUNCH_SHAPES["gram", X1.shape[-2], (X1 if X2 is None else X2).shape[-2]] += 1
+        gram_op.LAUNCH_SHAPES["gram", X1.shape[-2], (X1 if X2 is None else X2).shape[-2],
+                              X2 is not None] += 1
         return gram_op.gram_plain(family, p, X1, X2) + off
 
     def vjp(family, p, X1, X2, G, needs=(True, True, True), grid=0):
         gram_op.LAUNCHES["gram_vjp"] += 1
-        gram_op.LAUNCH_SHAPES["gram_vjp", X1.shape[-2], (X1 if X2 is None else X2).shape[-2]] += 1
+        gram_op.LAUNCH_SHAPES["gram_vjp", X1.shape[-2], (X1 if X2 is None else X2).shape[-2],
+                              X2 is not None] += 1
         return gram_op.gram_vjp_plain(family, p, X1, X2, G, needs)
 
     monkeypatch.setattr(gram_op, "launch_gram", gram)
@@ -63,8 +65,10 @@ def test_captured_launches_replay_against_the_plain_version(monkeypatch, dtype):
     with cs.captured_launches() as seen:
         _, n = gram_study.launches(path)
     assert n == (6, 3)
-    assert dict(gram_op.LAUNCH_SHAPES) == {("gram", 70, 70): 3, ("gram", 70, 33): 3,
-                                            ("gram_vjp", 70, 33): 3}
+    assert dict(gram_op.LAUNCH_SHAPES) == {("gram", 70, 70, False): 3, ("gram", 70, 33, True): 3,
+                                            ("gram_vjp", 70, 33, True): 3}
+    assert gram_study.by_shape() == {"gram 70x70": 3, "gram cross 70x33": 3,
+                                     "gram_vjp cross 70x33": 3}
     assert gram_op.launch_gram is gram and gram_op.launch_gram_vjp is vjp
     assert len(seen) == 3
     assert all(torch.equal(args[1], p + 2) for args in seen.values())

@@ -88,7 +88,8 @@ Phases, each of which exits non-zero on the first failure:
      f64 on the card against f64 on the CPU;
  22. optimize(method="optax", maxiter=10) on the headline: finite, no lower
      than the start, 1 + 1 launches an evaluation;
- 23. the notebook anchors (perf/anchors.py): robust regression, Poisson MCMC
+ 23. the notebook anchors (the examples' `run`, thresholds in
+     perf/anchors.py): robust regression, Poisson MCMC
      against VI, Mauna Loa by both optimizers, the sparse golden mlls and
      the regression quickstart, each anchor's gram launches then held
      against the plain versions at their inputs;
@@ -127,8 +128,12 @@ Phases, each of which exits non-zero on the first failure:
      on make_mesh({'data': 1}), 150 steps, its ELBO trace against the
      replicated Adam run step for step; `sharded_vi` with 8 restarts
      (restart 0 against `vi(method="adam")`); one gram launch each fit;
-     `ring_gram` at n = 3000 (one launch, cross).
-Every gram and VJP launch of phases 27-30 is kept (`captured_launches`)
+     `ring_gram` at n = 3000 (one launch, cross);
+ 31. the BASELINE kernel table's ten compositions (perf/bench_study.py:
+     fix, Masked at d = 1 and 9, sums and products) at n = 3000, f32: value
+     and gradient against f64 on the card within the headline's bar, and
+     one launch of each gram kernel an evaluation for each stationary leaf.
+Every gram and VJP launch of phases 27-31 is kept (`captured_launches`)
 and replayed against the plain versions in f64.
 Phase 8 also times the batched kernels (C = 128, n = 200; configuration
 #5's C = 1024, n = 60), configuration #4's cross gram (512 x 100 000,
@@ -157,6 +162,8 @@ import numpy as np
 import torch
 
 import gaussianprocesses_jl_tpu_torch as gp
+from gaussianprocesses_jl_tpu_torch.examples import (classification, mauna_loa, poisson_regression,
+                                                     regression, robust_regression)
 from gaussianprocesses_jl_tpu_torch.inference.hmc import batched_value_and_grad
 from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels as chol_op
 from gaussianprocesses_jl_tpu_torch.ops import cuda, gram as gram_op
@@ -168,9 +175,9 @@ from gaussianprocesses_jl_tpu_torch.ops.linalg import (
 )
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
 from gaussianprocesses_jl_tpu_torch.parallel import chains
-from gaussianprocesses_jl_tpu_torch.perf import (anchors, elastic_study, fitc_study, gpa_study,
-                                                 gram_study, parallel_study, single_parts,
-                                                 student_t_study, vi_study)
+from gaussianprocesses_jl_tpu_torch.perf import (anchors, bench_study, elastic_study, fitc_study,
+                                                 gpa_study, gram_study, parallel_study,
+                                                 single_parts, student_t_study, vi_study)
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
     HBM_BYTES_PER_S,
@@ -182,19 +189,13 @@ from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     time_ms,
 )
 from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
-from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
+from gaussianprocesses_jl_tpu_torch.utils.profiling import card_line, device_profile
 
 N_HEAD, D = 3000, 10
 
 
 def fail(msg):
     raise RuntimeError(msg)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def stationary_kernels():
@@ -632,30 +633,21 @@ N_CLASS_ITERS = 100
 
 def phase_classification(dev) -> dict:
     """Phase 15: examples/classification.py's model and data through the
-    port on the card (n = 80, d = 5, Matern 3/2 ARD, BernLik, Normal(0, 2)
-    priors, f32): one chain of the split sampler, `a_iters=8`,
-    `eps_a=eps_b=0.06`, N_CLASS_ITERS outer iterations; the model takes the
-    final state, and its train accuracy must reach 0.75, the anchor of
-    tests/test_notebook_parity.py."""
-    rng = np.random.RandomState(0)
-    n, d = 80, 5
-    X = rng.randn(n, d)
-    logit = 1.5 * X[:, 0] - 1.0 * X[:, 1] + 0.5 * X[:, 2] * X[:, 3]
-    y = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(float)
-    m = gp.GPA(X.astype(np.float32), y.astype(np.float32), gp.MeanZero(),
-               gp.Matern(1.5, np.zeros(d), 0.0), gp.BernLik(), device=dev)
-    m.set_priors(kern=[Normal(0.0, 2.0)] * (d + 1))
+    port's example (`examples/classification.py` in the port, its `run`) on
+    the card (n = 80, d = 5, Matern 3/2 ARD, BernLik, Normal(0, 2) priors,
+    f32): one chain of the split sampler, `a_iters=8`, `eps_a=eps_b=0.06`,
+    N_CLASS_ITERS outer iterations; the model takes the final state, and
+    its train accuracy must reach 0.75, the anchor of
+    tests/test_notebook_parity.py. The launches are the sampler's and the
+    accuracy's prediction."""
     t0 = time.perf_counter()
-    res, n_launch = launches(lambda: gp.mcmc(
-        m, torch.Generator(device=dev).manual_seed(0), n_iter=N_CLASS_ITERS, a_iters=8,
-        eps_a=0.06, eps_b=0.06, sampler="split", burn=N_CLASS_ITERS * 8 // 5, verbose=False))
+    res, n_launch = launches(lambda: classification.run(dev, np.float32, 4 * N_CLASS_ITERS,
+                                                        verbose=False))
     secs = time.perf_counter() - t0
-    prob, _ = m.predict_y(X.astype(np.float32))
-    acc = float(np.mean((prob.cpu().numpy() > 0.5) == (y > 0.5)))
+    acc = res["accuracy"]
     print(f"classification anchor: {N_CLASS_ITERS} outer iterations in {secs:.3f} s, "
           f"{n_launch[0]} gram and {n_launch[1]} gram_vjp launches, accept "
-          f"{[round(r, 3) for r in res.accept_rate.tolist()]}, train accuracy {acc:.3f} "
-          f"(anchor 0.75)", flush=True)
+          f"{res['accept']}, train accuracy {acc:.3f} (anchor 0.75)", flush=True)
     if not acc >= 0.75:
         fail(f"classification anchor: train accuracy {acc:.3f} < 0.75")
     return {"s": secs, "accuracy": acc, "launches": n_launch}
@@ -1180,17 +1172,19 @@ def phase_kernels_at(dev, what, fam, p, X1, X2, G) -> dict:
 
 
 @contextlib.contextmanager
-def captured_launches():
+def captured_launches(every: bool = False):
     """While open, keeps a copy of the inputs of the last launch of each
     gram kernel at each (family, dtype, shapes, needs) that the path runs
     (a sampler's first VJP may have a zero cotangent: its latents start
-    at 0), so that `check_captured` can hold the kernels against their
-    plain versions at those inputs after the run whose launches are
-    counted."""
+    at 0), or of every launch with `every`, so that `check_captured` can
+    hold the kernels against their plain versions at those inputs after
+    the run whose launches are counted."""
     seen = {}
     launch_gram, launch_gram_vjp = gram_op.launch_gram, gram_op.launch_gram_vjp
 
     def keep(key, *args):
+        if every:
+            key += (len(seen),)
         seen[key] = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
                           for a in args)
 
@@ -1479,8 +1473,9 @@ ANCHOR_ITERS = {"robust": 250, "poisson": 250, "regression": 100}
 
 
 def phase_anchors(dev) -> dict:
-    """Phase 23: the notebook anchors (perf/anchors.py) on the card, f32 but
-    Mauna Loa and the sparse pins, in f64 (the Mauna Loa gram does not
+    """Phase 23: the notebook anchors (the examples' `run`, the thresholds in
+    perf/anchors.py) on the card, f32 but Mauna Loa and the sparse pins, in
+    f64 (the Mauna Loa gram does not
     factor in f32 at its start, tests/test_torch_anchors.py): robust
     regression (rmse_t < rmse_g and < 0.15), Poisson (both correlations >
     0.5, within 0.15), Mauna Loa by L-BFGS-B and by method='optax' (rmse <
@@ -1505,24 +1500,25 @@ def phase_anchors(dev) -> dict:
         total[1] += n[1]
         return res
 
-    r = run("robust_regression", lambda: anchors.robust_regression(
-        dev, n_iter=ANCHOR_ITERS["robust"], dtype=np.float32))
+    r = run("robust_regression", lambda: robust_regression.run(
+        dev, np.float32, ANCHOR_ITERS["robust"], verbose=False))
     if not (r["rmse_t"] < r["rmse_g"] and r["rmse_t"] < anchors.ROBUST_RMSE_T):
         fail(f"robust regression anchor: {r}")
-    r = run("poisson", lambda: anchors.poisson(dev, n_iter=ANCHOR_ITERS["poisson"],
-                                               dtype=np.float32))
+    r = run("poisson", lambda: poisson_regression.run(dev, np.float32, ANCHOR_ITERS["poisson"],
+                                                      verbose=False))
     if not (min(r["corr_mcmc"], r["corr_vi"]) > anchors.POISSON_CORR
             and abs(r["corr_mcmc"] - r["corr_vi"]) < anchors.POISSON_GAP):
         fail(f"Poisson anchor: {r}")
     for method in ("lbfgs", "optax"):
-        r = run(f"mauna_loa_{method}", lambda: anchors.mauna_loa(dev, method=method))
+        r = run(f"mauna_loa_{method}",
+                lambda: mauna_loa.run(dev, method=method, verbose=False))
         if not (r["rmse"] < anchors.MAUNA_LOA_RMSE and r["mll"] > r["mll0"]):
             fail(f"Mauna Loa anchor ({method}): {r}")
     r = run("sparse_golden", lambda: anchors.sparse_golden(dev))
     if not r["within"]:
         fail(f"sparse golden mlls: {r}")
-    r = run("regression", lambda: anchors.regression(dev, n_iter=ANCHOR_ITERS["regression"],
-                                                     dtype=np.float32))
+    r = run("regression", lambda: regression.run(dev, np.float32, ANCHOR_ITERS["regression"],
+                                                 verbose=False))
     if not r["finite"]:
         fail(f"regression quickstart: {r}")
     return out, tuple(total), errs
@@ -1853,6 +1849,45 @@ def phase_sharded_vi(dev) -> dict:
     return out
 
 
+def phase_compositions(dev) -> tuple:
+    """Phase 31: `bench_study`'s ten compositions at n = 3000 (the micro
+    suite's data: `RandomState(42)` drawn for n = 100, then n = 3000), f32 on
+    the card against f64 on the card within `HEADLINE_BAR`; each evaluation
+    launches the gram and the VJP kernel once for each stationary leaf.
+    Every gram and VJP launch of each composition's f32 evaluation is kept
+    (`captured_launches(every=True)`: two SE leaves share a shape) and
+    replayed against the plain versions in f64
+    (`check_captured`): Masked at d = 1 and 9, and the products' and sums'
+    cotangents, are shapes and inputs no earlier phase holds the kernels
+    at. Returns the launches of all ten and the kernels' largest
+    differences."""
+    rng = np.random.RandomState(bench_study.SEED)
+    bench_study.bench_data(bench_study.MICRO_SIZES[0], rng)
+    X64, y64 = bench_study.bench_data(N_HEAD, rng)
+    data = {dt: tuple(torch.as_tensor(a, dtype=dt, device=dev) for a in (X64, y64))
+            for dt in (torch.float32, torch.float64)}
+    total, errs = [0, 0], {"gram": 0.0, "gram_vjp": 0.0}
+    for name, kern in bench_study.compositions().items():
+        p32 = bench_study.bench_params(kern, torch.float32, dev)
+        with captured_launches(every=True) as seen:
+            got, n = launches(lambda: bench_study.mll_and_grad(p32, *data[torch.float32]))
+        if {key[0] for key in seen} != {"gram", "gram_vjp"}:
+            fail(f"{name}: the evaluation's launches were not captured: {list(seen)}")
+        for kernel, err in check_captured(name, seen).items():
+            errs[kernel] = max(errs[kernel], err)
+        del seen
+        leaves = bench_study.LEAVES[name]
+        print(f"  {name}: f32 mll {float(got[0]):.4f}, {n[0]} gram and {n[1]} gram_vjp "
+              f"launches ({leaves} stationary leaves)")
+        if n != (leaves, leaves):
+            fail(f"{name}: {n} launches an evaluation, expected {leaves} of each")
+        ref = bench_study.mll_and_grad(bench_study.bench_params(kern, torch.float64, dev),
+                                       *data[torch.float64])
+        within(f"{name} f32 vs f64 card", bench_study.gaps(got, ref), HEADLINE_BAR)
+        total = [a + b for a, b in zip(total, n)]
+    return tuple(total), errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2068,9 +2103,15 @@ def main() -> int:
         main_launches, n_fitc10k, fitc["launches"], n_fsa, vi_out["fit_launches"],
         vi_out["objective_launches"], vi_out["predict_launches"], n_cv, n_optax, n_anchors,
         config5["launches"], elastic["launches"], n_adapters, dist_launches)]
+    # 31. the kernel table's compositions
+    t0 = time.perf_counter()
+    print("phase 31: the BASELINE kernel table's ten compositions at n = 3000", flush=True)
+    n_table, table_errs = phase_compositions(dev)
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s", flush=True)
+    main_launches = [a + b for a, b in zip(main_launches, n_table)]
     dist_errs = {k: max(dist[p]["max_abs_err"][k] for p in dist) for k in ("gram", "gram_vjp")}
     for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs,
-                 config5["max_abs_err"], dist_errs):
+                 config5["max_abs_err"], dist_errs, table_errs):
         worst32 = max(worst32, errs["gram"])
         vjp_worst32 = max(vjp_worst32, errs["gram_vjp"])
     print("sparse, VI and anchors: " + json.dumps({"fitc_100k": fitc, "vi": vi_out,

@@ -18,7 +18,7 @@ import math
 import torch
 
 from ..models.gpe import GPEParams, gpe_factorize
-from ..ops.linalg import solve_lower
+from ..ops.linalg import require_pd, solve_lower
 
 __all__ = [
     "predict_LOO",
@@ -35,6 +35,7 @@ _LOG_2PI = math.log(2.0 * math.pi)
 def _Linv_alpha(params: GPEParams, X, y, covstrat):
     """(L^-1, alpha = K^-1 r) of the model's factorized train covariance."""
     pd = gpe_factorize(params, X, covstrat)
+    require_pd(pd.ok, "cross-validation's train covariance")
     alpha = pd.solve(y - params.mean.mean(X))
     eye = torch.eye(pd.L.shape[0], dtype=pd.L.dtype, device=pd.L.device)
     return solve_lower(pd.L, eye), alpha

@@ -26,7 +26,7 @@ import torch
 
 from ..models.gpa import gpa_nugget
 from ..models.gpe import _as_X
-from ..ops.linalg import solve_lower
+from ..ops.linalg import require_pd, solve_lower
 
 __all__ = ["Approx", "elbo", "vi", "make_neg_elbo", "vi_predict_f", "vi_predict_y"]
 
@@ -42,9 +42,11 @@ class Approx:
 def _prior_factor(gp, nugget=None):
     """The latent prior K + nugget (`gpa_nugget(dtype)` unless given),
     factorized at the current kernel parameters, and the prior mean at the
-    data."""
+    data. Raises ValueError when the factorization fails: the fit would be
+    of K = I (the JAX package fits it silently)."""
     nugget = gpa_nugget(gp.dtype) if nugget is None else nugget
     pd = gp.covstrat.build(gp.params.kernel, nugget, gp.x)
+    require_pd(pd.ok, "VI's prior K + nugget")
     return pd, gp.params.mean.mean(gp.x)
 
 

@@ -18,6 +18,7 @@ import torch
 
 from ..ops.kernels import Kernel
 from ..ops.likelihoods import Likelihood
+from ..ops.linalg import require_pd
 from ..ops.means import Mean, MeanZero
 from ..utils.modules import Module, module, replace
 from .covariance import FullCovariance
@@ -106,6 +107,7 @@ def gpa_predict_f(params: GPAParams, X, y, Xs, covstrat=FullCovariance(),
     """Latent posterior at Xs: alpha = cK^-1 L v, then the strategy's
     predictive MVN."""
     pd, mu, f = _latent_f(params, X, covstrat)
+    require_pd(pd.ok, "the latent predictive's prior K + nugget")
     alpha = pd.solve(f - mu)
     mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, f - mu, alpha, Xs, full_cov)
     return params.mean.mean(Xs) + mu_cross, cov

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import Kernel, SEIso
+from ..ops.linalg import require_pd
 from ..ops.means import Mean, MeanZero
 from ..utils.modules import Module, module, replace
 from ..utils.params import Param, wrap_param
@@ -89,6 +90,7 @@ def gpe_predict_f(params: GPEParams, X, y, Xs, covstrat=FullCovariance(),
     assigning test points to FSA training blocks for the cross-Lambda
     correction; only FullScaleApproxStrat accepts it."""
     pd = gpe_factorize(params, X, covstrat)
+    require_pd(pd.ok, "the predictive's train covariance")
     r = y - params.mean.mean(X)
     alpha = pd.solve(r)
     mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov,

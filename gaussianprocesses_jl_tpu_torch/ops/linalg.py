@@ -18,6 +18,7 @@ import torch
 __all__ = [
     "add_diag",
     "safe_cholesky",
+    "require_pd",
     "solve_lower",
     "solve_upper",
     "chol_solve",
@@ -63,6 +64,15 @@ def safe_cholesky(K: torch.Tensor):
     L, ok = _chol(K)
     eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
     return torch.where(ok, L, eye), ok
+
+
+def require_pd(ok, what: str) -> None:
+    """Raise ValueError unless `ok` (a factorization's flag) holds: for
+    callers whose result would otherwise belong to safe_cholesky's
+    identity, K = I. Reads the flag on the host."""
+    if not bool(ok):
+        raise ValueError(f"{what}: the covariance is not positive definite at "
+                         "the working precision (its Cholesky factorization failed)")
 
 
 def _as_matrix(B):
@@ -161,18 +171,24 @@ def tri_inv_lower(L: torch.Tensor, block: int = 256) -> torch.Tensor:
     Dinv = torch.linalg.solve_triangular(diag_blocks, eye_b.expand(nb, block, block),
                                          upper=False)
 
-    def rec(i0: int, m: int) -> torch.Tensor:
-        if m == block:
-            return Dinv[i0 // block]
-        k = max(block, ((m // 2) // block) * block)
-        iA = rec(i0, k)
-        iC = rec(i0 + k, m - k)
-        B = Lp[i0 + k:i0 + m, i0:i0 + k]
-        X = -(iC @ (B @ iA))
-        top = torch.cat([iA, L.new_zeros((k, m - k))], dim=1)
-        return torch.cat([top, torch.cat([X, iC], dim=1)], dim=0)
+    return _tri_inv_rec(Dinv, Lp, block, 0, npad)[:n, :n]
 
-    return rec(0, npad)[:n, :n]
+
+def _tri_inv_rec(Dinv: torch.Tensor, Lp: torch.Tensor, block: int, i0: int,
+                 m: int) -> torch.Tensor:
+    """The inverse of Lp's diagonal block [i0, i0 + m), its diagonal blocks'
+    inverses in Dinv. A module function, not a closure: a closure that
+    calls itself is a reference cycle, and its tensors (Lp, Dinv) would
+    wait for the garbage collector after every call."""
+    if m == block:
+        return Dinv[i0 // block]
+    k = max(block, ((m // 2) // block) * block)
+    iA = _tri_inv_rec(Dinv, Lp, block, i0, k)
+    iC = _tri_inv_rec(Dinv, Lp, block, i0 + k, m - k)
+    B = Lp[i0 + k:i0 + m, i0:i0 + k]
+    X = -(iC @ (B @ iA))
+    top = torch.cat([iA, Lp.new_zeros((k, m - k))], dim=1)
+    return torch.cat([top, torch.cat([X, iC], dim=1)], dim=0)
 
 
 def tri_syrk_lower(Linv: torch.Tensor, block: int = 2048) -> torch.Tensor:

@@ -32,15 +32,32 @@ so a batch of chains under `torch.func.vmap` shares one collective call.
 
 The raw forms (`allreduce_`, `gather_`, `broadcast_`, `shift_`, `all_ok`)
 carry no gradient; the distributed factorization calls them inside its own
-autograd.Functions.
+autograd.Functions. Every call that reaches `torch.distributed` counts its
+bytes in `BYTES` and itself in `CALLS`, keyed by (op, axis, dtype): the
+reduced tensor of an all-reduce ("allreduce", `all_ok`'s too), the
+gathered output of an all-gather ("gather"), the broadcast tensor
+("broadcast") and the shifted block ("shift"), as the JAX repo's
+`perf/comm_model.py` reads them from compiled HLO. A size-1 axis counts
+nothing.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["copy", "psum", "all_gather", "ppermute", "broadcast", "copy_module", "allreduce_",
-           "gather_", "broadcast_", "shift_", "all_ok"]
+           "gather_", "broadcast_", "shift_", "all_ok", "BYTES", "CALLS"]
+
+BYTES: collections.Counter = collections.Counter()
+CALLS: collections.Counter = collections.Counter()
+
+
+def _count(op: str, axis: str, t: torch.Tensor) -> None:
+    key = (op, axis, str(t.dtype).removeprefix("torch."))
+    BYTES[key] += t.numel() * t.element_size()
+    CALLS[key] += 1
 
 
 def _global(group, i: int) -> int:
@@ -61,6 +78,7 @@ def allreduce_(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         return x
     out = x.detach().clone().contiguous()
     dist.all_reduce(out, group=group)
+    _count("allreduce", axis, out)
     return out
 
 
@@ -73,7 +91,9 @@ def gather_(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     x = x.detach().contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.shape[axis])]
     dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    _count("gather", axis, out)
+    return out
 
 
 def broadcast_(x: torch.Tensor, mesh, axis: str, owner: int) -> torch.Tensor:
@@ -84,6 +104,7 @@ def broadcast_(x: torch.Tensor, mesh, axis: str, owner: int) -> torch.Tensor:
         return x
     out = x.detach().clone().contiguous()
     dist.broadcast(out, src=_global(group, owner), group=group)
+    _count("broadcast", axis, out)
     return out
 
 
@@ -101,6 +122,7 @@ def shift_(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
            dist.P2POp(dist.irecv, out, _global(group, (me - shift) % P), group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    _count("shift", axis, out)
     return out
 
 
@@ -111,6 +133,7 @@ def all_ok(ok: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         return ok
     bad = (~ok).to(torch.int32).contiguous()
     dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=group)
+    _count("allreduce", axis, bad)
     return bad == 0
 
 

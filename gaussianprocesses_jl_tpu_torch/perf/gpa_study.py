@@ -86,16 +86,17 @@ def outer_iterations(target, a, b, generator, n_iter):
                      eps_a=EPS_A, eps_b=EPS_B, Lmin=LMIN, Lmax=LMAX)
 
 
-def run(device, n_iter=N_ITER, warmup=WARMUP) -> dict:
-    """The timed run of CHAINS chains and its diagnostics."""
+def run(device, n_iter=N_ITER, warmup=WARMUP, chains=CHAINS) -> dict:
+    """The timed run of `chains` chains and its diagnostics."""
     m = config2_model(device)
     g = torch.Generator(device=device).manual_seed(11)
-    *target, a, b = chain_starts(m, CHAINS, g)
+    *target, a, b = chain_starts(m, chains, g)
+    sync = torch.cuda.synchronize if m.x.is_cuda else (lambda: None)
     outer_iterations(target, a, b, g, 1)  # kernels built, allocator warm
-    torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     res = outer_iterations(target, a, b, g, n_iter)
-    torch.cuda.synchronize()
+    sync()
     wall = time.perf_counter() - t0
     post = res.samples[:, warmup * A_ITERS:]
     ess = effective_sample_size(post).cpu().numpy()
@@ -103,7 +104,7 @@ def run(device, n_iter=N_ITER, warmup=WARMUP) -> dict:
     finite = bool(torch.isfinite(res.samples).all())
     out = {
         "n_obs": m.nobs, "dim_theta": int(post.shape[-1]), "sampler": "split",
-        "chains": CHAINS, "iters": n_iter, "iters_post_warmup": n_iter - warmup,
+        "chains": chains, "iters": n_iter, "iters_post_warmup": n_iter - warmup,
         "draws_per_iter": A_ITERS, "a_iters": A_ITERS, "eps_a": EPS_A, "eps_b": EPS_B,
         "wall_s": wall, "s_per_outer_iter": wall / n_iter,
         "accept_a": float(res.accept_rate_a.mean()), "accept_b": float(res.accept_rate_b.mean()),
@@ -113,7 +114,7 @@ def run(device, n_iter=N_ITER, warmup=WARMUP) -> dict:
         "rhat_max": float(np.nanmax(rhat)), "valid": bool(np.nanmax(rhat) < 1.01),
         "draws_finite": finite,
     }
-    print(f"config #2, {CHAINS} chains, {n_iter} outer iterations ({warmup} dropped), "
+    print(f"config #2, {chains} chains, {n_iter} outer iterations ({warmup} dropped), "
           f"a_iters={A_ITERS}: wall {wall:.3f} s ({1e3 * wall / n_iter:.2f} ms an outer "
           f"iteration); ESS min {out['ess_min']:.1f}, median {out['ess_median']:.1f}; ESS/s "
           f"min {out['ess_per_sec_min']:.2f}, median {out['ess_per_sec_median']:.2f}; R-hat "

@@ -116,7 +116,8 @@ def predictives(Q, device, perm=None) -> dict:
 
 def factor_ok(device) -> bool:
     """Whether the f32 model's prior factor of K + 1e-4 I holds on `device`."""
-    return bool(vi_mod._prior_factor(config3_model(device))[0].ok)
+    m = config3_model(device)
+    return bool(m.covstrat.build(m.params.kernel, gpa_nugget(m.dtype), m.x).ok)
 
 
 def _objectives(device):

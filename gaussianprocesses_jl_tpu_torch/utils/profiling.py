@@ -1,7 +1,7 @@
 """Tracing and timing helpers (counterpart of
 `gaussianprocesses_jl_tpu/utils/profiling.py`).
 
-Six tools:
+Seven tools:
   * `trace(dir)`             - context manager writing a `torch.profiler`
                                trace (Chrome/Perfetto JSON) of the block.
   * `device_ms_by_name(fn)`  - the card's time per call of fn(*args) by
@@ -14,6 +14,9 @@ Six tools:
                                events around `reps` calls on the card, the
                                host clock on the CPU.
   * `live_device_bytes()`    - bytes held by PyTorch's CUDA allocator.
+  * `card_line()`            - the card's name and power limit, as
+                               `nvidia-smi` gives them, for every number
+                               a script prints.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["trace", "device_ms_by_name", "device_profile", "StepTimer", "device_time",
-           "live_device_bytes"]
+           "live_device_bytes", "card_line"]
 
 
 def _profiler():
@@ -202,3 +205,12 @@ def live_device_bytes() -> int:
     if not torch.cuda.is_available():
         return 0
     return sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count()))
+
+
+def card_line() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`."""
+    import subprocess
+
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()

@@ -12,8 +12,8 @@ difference, down to the last bit of a sum, to ~1e-5 over 24 adapted
 iterations. So the adaptive run on it is held iteration by iteration: each
 of its 32 iterations starts from the JAX sampler's state at that iteration
 (its checkpoint), on JAX's own target, and must give JAX's next state
-within 1e-9 (`STEP_RTOL`); the port's target and gradient are held against
-JAX's at each of those states within 1e-10."""
+within 1e-9 (`STEP_RTOL`); the port's target is held against JAX's at each
+of those states within 1e-10, and its gradient within `STEP_RTOL`."""
 import os
 import subprocess
 import sys
@@ -149,7 +149,10 @@ def test_every_sharded_hmc_iteration_matches_jax(monkeypatch):
         t_port, g_port = vg_port(T(ref[0]))
         t_jax, g_jax = vg(T(ref[0]))
         _close(t_port, t_jax)
-        _close(g_port, g_jax)
+        # the gradient at STEP_RTOL, as every state field: at cond(K) ~ 6e6
+        # the two packages' gradients stood up to 1.04e-10 of max|g| apart
+        # over the 32 states (AMD EPYC, MKL), past rtol 1e-10 on some hosts
+        _close(g_port, g_jax, STEP_RTOL)
 
 
 def test_sharded_split_hmc_matches_jax():

@@ -58,6 +58,25 @@ def test_tri_inv_lower():
                                rtol=1e-10, atol=1e-12)
 
 
+def test_tri_inv_lower_leaves_no_reference_cycle():
+    """One call of the recursion (n = 37 in blocks of 8) leaves no tensor
+    for the garbage collector: a self-calling closure held the padded
+    factor and the diagonal blocks' inverses until the collector ran."""
+    import gc
+
+    L = _t(np.linalg.cholesky(_spd(37, 2)))
+    gc.collect()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        tl.tri_inv_lower(L, block=8)
+        gc.collect()
+        cyclic = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    assert cyclic == []
+
+
 def test_tri_syrk_lower():
     Linv = np.linalg.inv(np.linalg.cholesky(_spd(50, 3)))
     got = tl.tri_syrk_lower(_t(Linv), block=16)

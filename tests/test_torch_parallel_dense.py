@@ -11,8 +11,8 @@ rtol 1e-9 and its gradient rtol 1e-6 against the JAX package (and the dense
 strategy), tiles and factors atol 1e-10 of their largest entry, solves atol
 1e-8, the latent map's VJP rtol 1e-8. Bits do not follow the JAX package
 (its factorization sums in its own order), so nothing is held bit for bit
-across packages. The non-PD case must give -inf from `info`, where the
-factor stays finite."""
+across packages. The non-PD case must give -inf, and `ok` must come from
+`info` (a finite factor with info = 1 is a failure)."""
 import math
 
 import jax
@@ -254,10 +254,12 @@ def test_distributed_mll_matches_gpe():
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_distributed_nonpd_rejected(dtype):
+def test_distributed_nonpd_rejected(dtype, monkeypatch):
     """A rank-one Const(20) gram with lognoise -200 is not PD: -inf, as in the
-    JAX package. cholesky_ex leaves a finite partial factor there, so the
-    rejection must come from `info`, not from the factor's finiteness."""
+    JAX package. Whether cholesky_ex's partial factor stays finite there
+    depends on the LAPACK build, so `ok` must come from `info`: a cholesky_ex
+    that returns a finite factor of a PD tile with info = 1 must still give
+    `not ok` and -inf."""
     X, y = _data(seed=12)
     pt = gt.GPEParams(lognoise=gt.Param(value=torch.tensor(-200.0)), mean=gt.MeanZero(),
                       kernel=gt.Const(20.0)).to(dtype=dtype)
@@ -267,7 +269,23 @@ def test_distributed_nonpd_rejected(dtype):
     tiles = tc.build_tiles(pt.kernel, math.exp(-400.0), Xt, B, mesh)
     L, logdet, ok = tc.distributed_cholesky(tiles.detach(), mesh, return_ok=True)
     assert not bool(ok)
-    assert bool(torch.isfinite(L).all())  # the failure shows in info alone
+
+    pd = gt.GPEParams(lognoise=gt.Param(value=torch.tensor(-0.7)), mean=gt.MeanZero(),
+                      kernel=gt.SE(0.2, 0.1)).to(dtype=dtype)
+    pd_tiles = tc.build_tiles(pd.kernel, math.exp(-1.4), Xt, B, mesh).detach()
+    assert bool(tc.distributed_cholesky(pd_tiles, mesh, return_ok=True)[2])
+    real = torch.linalg.cholesky_ex
+
+    def info_one(A, **kw):
+        Lkk, info = real(A, **kw)
+        return Lkk, torch.ones_like(info)
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", info_one)
+    L, logdet, ok = tc.distributed_cholesky(pd_tiles, mesh, return_ok=True)
+    assert bool(torch.isfinite(L).all()) and bool(torch.isfinite(logdet))
+    assert not bool(ok)  # the failure shows in info alone
+    assert float(gpe_target(pd, Xt, yt, gt.DistributedFullCovariance(mesh, B=B))[0]) == -math.inf
+    monkeypatch.undo()
     pj = gj.GPEParams(lognoise=gj.Param(value=jnp.asarray(-200.0)), mean=gj.MeanZero(),
                       kernel=gj.Const(20.0))
     assert np.isneginf(float(j_gpe_target(pj, jnp.asarray(X), jnp.asarray(y),

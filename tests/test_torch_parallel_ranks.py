@@ -15,6 +15,7 @@ distributed, so against the dense strategy the JAX tests' rtol 1e-9 for
 values and 1e-6 for gradients); against the JAX package the tolerances of
 test_torch_parallel_dense.py and test_torch_parallel_sharded.py; chains x j
 against the single-axis dense run atol 1e-6 (the JAX test's)."""
+import json
 import os
 import subprocess
 import sys
@@ -33,6 +34,7 @@ from gaussianprocesses_jl_tpu.parallel.fitc import fitc_mll_sharded_fn as j_fitc
 from gaussianprocesses_jl_tpu.parallel.fitc import shard_data as j_shard_data
 from gaussianprocesses_jl_tpu.parallel.mesh import make_mesh as j_make_mesh
 from gaussianprocesses_jl_tpu_torch.parallel import chains, vi as tvi
+from gaussianprocesses_jl_tpu_torch.perf import comm_model
 
 import torch_parallel_ranks as R
 
@@ -209,3 +211,32 @@ def test_chains_x_j_over_four_processes(ranks):
     assert sorted(tuple(got["pod"][2:]) for got in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
     for got in ranks:
         assert tuple(got["pod"][:2]) == (2, 2)
+
+
+# The traffic of each path of perf/comm_model.py over 4 processes, f32, as
+# parallel/collectives.py counts it (bytes of the reduced tensor, the
+# gathered output, the broadcast tensor, the shifted block). Three follow
+# from the shapes alone: the ring gram shifts its (n/P, d) block P - 1
+# times; FITC all-gathers P (m + 1)^2 R factors; the ELBO all-reduces the
+# shares of m's and v's gradients (n each) and one scalar sum.
+COMM_P4 = {
+    "sharded_hmc": {"gather": {"count": 32, "bytes": 5760}},
+    "sharded_split_hmc": {"gather": {"count": 13, "bytes": 12384}},
+    "distributed_cholesky_vg": {"allreduce": {"count": 12, "bytes": 1040},
+                                "broadcast": {"count": 24, "bytes": 327680},
+                                "gather": {"count": 1, "bytes": 1024},
+                                "shift": {"count": 3, "bytes": 196608}},
+    "sharded_fitc_vg": {"allreduce": {"count": 6, "bytes": 16404},
+                        "gather": {"count": 1, "bytes": WORLD * 65 * 65 * 4}},
+    "sharded_elbo_vg": {"allreduce": {"count": 3, "bytes": 2 * 512 * 4 + 4}},
+    "ring_gram": {"shift": {"count": WORLD - 1, "bytes": (WORLD - 1) * (512 // WORLD) * 4 * 4}},
+}
+
+
+@pytest.mark.parametrize("path", comm_model.PATHS)
+def test_collective_bytes_over_four_processes(ranks, path):
+    """The bytes and calls each rank handed to torch.distributed on one
+    path: the same on every rank, and those above."""
+    got = [json.loads(str(r["comm"]))[path]["ops"] for r in ranks]
+    assert all(g == got[0] for g in got[1:])
+    assert got[0] == COMM_P4[path]

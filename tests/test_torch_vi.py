@@ -169,3 +169,45 @@ def test_vi_study_gap_measurements_at_a_small_size(monkeypatch):
         elif k.startswith(("objective_f32", "predictive_f32")):
             assert max(v) < 1e-1, (k, v)  # f32 rounding at n = 200
     assert out["predictive_f64_1e-4_vs_f64_1e-6"][1] > 1e-4
+
+
+def _nonpd_pair(dtype):
+    """The Poisson GPA under Const(20): K = e^40 11^T, whose factor with the
+    nugget fails at either precision."""
+    X, y = _data()
+    mj = gj.GPA(X, y, gj.MeanZero(), gj.Const(20.0), gj.PoisLik())
+    mt = gt.GPA(X.astype(dtype), y, gt.MeanZero(), gt.Const(20.0), gt.PoisLik(), device="cpu")
+    return mj, mt
+
+
+_NONPD_ENTRIES = {
+    "vi_lbfgs": lambda m: gt.vi(m, nits=3),
+    "vi_adam": lambda m: gt.vi(m, nits=3, method="adam"),
+    "elbo": lambda m: gt.elbo(m, torch.zeros(m.x.shape[0]), torch.ones(m.x.shape[0])),
+    "make_neg_elbo": tvi.make_neg_elbo,
+    "vi_predict_f": lambda m: gt.vi_predict_f(
+        m, tvi.Approx(m=m.x.new_zeros(m.x.shape[0]), v=m.x.new_ones(m.x.shape[0])), m.x),
+    "sharded_vi": lambda m: gt.sharded_vi(m, gt.make_mesh({"chains": 1}, device="cpu"),
+                                          nits=2),
+    "sharded_vi_train": lambda m: gt.sharded_vi_train(m, gt.make_mesh({"data": 1},
+                                                                      device="cpu"), nits=2),
+    "sharded_elbo": lambda m: gt.sharded_elbo(m, torch.zeros(m.x.shape[0]),
+                                              torch.ones(m.x.shape[0]),
+                                              gt.make_mesh({"data": 1}, device="cpu")),
+    "gpa_predict_f": lambda m: m.predict_f(m.x),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("entry", sorted(_NONPD_ENTRIES))
+def test_failed_prior_factor_raises(entry, dtype):
+    """A prior whose factor fails raises ValueError in every VI entry point
+    (and the latent predictive), where the JAX package fits K = I: its
+    factor's flag is False there and its objective finite at m = 0, v = 1."""
+    mj, mt = _nonpd_pair(dtype)
+    with pytest.raises(ValueError, match="not positive definite"):
+        _NONPD_ENTRIES[entry](mt)
+    if entry == "make_neg_elbo" and dtype == np.float64:
+        assert not bool(mj.covstrat.build(mj.params.kernel, 1e-6, mj.x).ok)
+        fj, th0j, _ = jvi.make_neg_elbo(mj)
+        assert np.isfinite(float(fj(jnp.zeros_like(th0j))))

@@ -16,12 +16,16 @@ runs, f64:
     sharded_vi_train;
   * on make_pod_mesh({'j': 2}) (axes ('chains', 'j') of sizes (2, 2)):
     sharded_hmc over AmbientFullCovariance;
+  * the bytes and calls of the collectives on each path of
+    `perf/comm_model.py` (`measure_paths`, its own meshes of size 4);
 and saves what this rank computed to OUT_DIR/rank{RANK}.npz.
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import json  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -34,6 +38,7 @@ from gaussianprocesses_jl_tpu_torch.parallel import (  # noqa: E402
     chains, cholesky, collectives, fitc, mesh, vi)
 from gaussianprocesses_jl_tpu_torch.parallel.collectives import gather_, psum  # noqa: E402
 from gaussianprocesses_jl_tpu_torch.parallel.dense import AmbientFullCovariance  # noqa: E402
+from gaussianprocesses_jl_tpu_torch.perf import comm_model  # noqa: E402
 
 N_DENSE, N_GPA, N_RING, N_FITC, N_VI, N_HMC = 64, 64, 64, 1600, 48, 32
 HMC_KW = dict(n_iter=6, n_warmup=4, eps0=0.05, Lmin=2, Lmax=4)
@@ -230,6 +235,7 @@ def main(rank, world, init_file, out_dir):
         out["hmc_samples"], out["hmc_final_target"] = h.samples.numpy(), h.final_target.numpy()
         out["pod"] = np.asarray([pod.shape["chains"], pod.shape["j"], pod.coords["chains"],
                                  pod.coords["j"]])
+        out["comm"] = np.asarray(json.dumps(comm_model.measure_paths(world)))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

@@ -133,8 +133,18 @@ Phases, each of which exits non-zero on the first failure:
      fix, Masked at d = 1 and 9, sums and products) at n = 3000, f32: value
      and gradient against f64 on the card within the headline's bar, and
      one launch of each gram kernel an evaluation for each stationary leaf.
-Every gram and VJP launch of phases 27-31 is kept (`captured_launches`)
-and replayed against the plain versions in f64.
+ 32. the CUDA graphs against eager (`graphs.eager()`), each pair from the
+     same inputs and draws: the headline's value and gradient (1 + 1
+     launches each way; events, enqueue and busy ms), one HMC iteration at
+     configuration #5's 1024 chains (15 + 15 launches) and one split outer
+     iteration at configuration #2's 128 chains (17 + 16), each equal bit
+     for bit or within the f32 bars, no accept decision changed; a dropped
+     model's graph gives its memory back.
+On the card the targets and the samplers run through their CUDA graphs
+(`utils/graphs.py`) in every phase unless it asks for eager: phases 4-8,
+13-16, 24 and 27-28 among them. Every gram and VJP launch of phases 27-31
+is kept (`captured_launches`; under a graph, its capture's warm-up) and
+replayed against the plain versions in f64.
 Phase 8 also times the batched kernels (C = 128, n = 200; configuration
 #5's C = 1024, n = 60), configuration #4's cross gram (512 x 100 000,
 perf/fitc_study.py), the elastic append's grams and the distributed
@@ -150,6 +160,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -164,6 +175,7 @@ import torch
 import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.examples import (classification, mauna_loa, poisson_regression,
                                                      regression, robust_regression)
+from gaussianprocesses_jl_tpu_torch.inference import hmc
 from gaussianprocesses_jl_tpu_torch.inference.hmc import batched_value_and_grad
 from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels as chol_op
 from gaussianprocesses_jl_tpu_torch.ops import cuda, gram as gram_op
@@ -181,6 +193,7 @@ from gaussianprocesses_jl_tpu_torch.perf import (anchors, bench_study, elastic_s
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
     HBM_BYTES_PER_S,
+    eagerly,
     enqueue_ms,
     gram_bound_ms,
     gram_vjp_bound_ms,
@@ -188,6 +201,7 @@ from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     profile_ms,
     time_ms,
 )
+from gaussianprocesses_jl_tpu_torch.utils import graphs
 from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
 from gaussianprocesses_jl_tpu_torch.utils.profiling import card_line, device_profile
 
@@ -1178,11 +1192,19 @@ def captured_launches(every: bool = False):
     (a sampler's first VJP may have a zero cotangent: its latents start
     at 0), or of every launch with `every`, so that `check_captured` can
     hold the kernels against their plain versions at those inputs after
-    the run whose launches are counted."""
+    the run whose launches are counted. A launch under CUDA-graph capture
+    computes nothing yet and is not kept: a graphed path's launches are
+    kept from its capture's warm-up, which ran on the same inputs. So the
+    block opens by dropping every kept graph (`graphs.clear()`): each
+    graphed region in it captures anew, and no graph captured before it
+    replays launches that nothing here holds against the plain version."""
+    graphs.clear()
     seen = {}
     launch_gram, launch_gram_vjp = gram_op.launch_gram, gram_op.launch_gram_vjp
 
     def keep(key, *args):
+        if args[2].is_cuda and torch.cuda.is_current_stream_capturing():
+            return
         if every:
             key += (len(seen),)
         seen[key] = tuple(a.detach().clone() if isinstance(a, torch.Tensor) else a
@@ -1888,6 +1910,146 @@ def phase_compositions(dev) -> tuple:
     return tuple(total), errs
 
 
+# phase 32's bars where graph and eager differ in bits: the headline's (value
+# relative, gradient of max|g|), and for a sampler's states, targets and
+# gradients the GPA target's f32 bar of phase 13 (relative to each
+# output's largest magnitude); an accept decision must not change
+GRAPH_BARS = {"headline": HEADLINE_BAR, "sampler": GPA_TOL}
+
+
+def graph_gap(got, ref) -> float:
+    """0 for equal bits, else max|got - ref| / max|ref|."""
+    if torch.equal(got, ref):
+        return 0.0
+    got, ref = got.double(), ref.double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+def phase_graphs(dev) -> dict:
+    """Phase 32: the CUDA graphs (`utils/graphs.py`) against eager
+    (inside `graphs.eager()`), in one process, each pair from the same
+    inputs and draws:
+      * the headline (SE, n = 3000, d = 10, f32): value and gradient, 1 + 1
+        launches each way; CUDA-event ms, host enqueue ms and device-busy
+        ms (torch.profiler) of each;
+      * one HMC iteration of configuration #5 (1024 chains of the Student-t
+        GPA, D = 63, Lmax 15, a diagonal M^-1): the new states, targets,
+        gradients, accept probabilities and decisions, 15 + 15 launches
+        each way; CUDA-event and enqueue ms of each;
+      * one outer iteration of the split sampler at configuration #2 (128
+        chains, a_iters 16): the draws, the final state and target, 17 + 16
+        launches each way; enqueue, CUDA-event and busy ms of each
+        (`gpa_study.one_iteration`).
+    Each pair is equal bit for bit, or its gap (`graph_gap`) is within
+    GRAPH_BARS and no accept decision differs. Last, the headline's model
+    captured anew and dropped: the memory its graph reserved goes back to
+    the card with it (at most a tenth left)."""
+    out = {}
+    rng = np.random.RandomState(42)
+    Xh, yh = rng.randn(N_HEAD, D), rng.randn(N_HEAD)
+    m = gp.GPE(Xh.astype(np.float32), yh.astype(np.float32), gp.MeanZero(), gp.SE(0.0, 0.0),
+               lognoise=-1.0, device=dev)
+    ways = {"graph": lambda f: f, "eager": eagerly}
+    row = {}
+    for label, way in ways.items():
+        call = way(m.target_and_dtarget)
+        (t, g), n = launches(call)
+        busy, kernels, _ = device_profile(call)
+        row[label] = {"value": t, "grad": g, "launches": n, "event_ms": time_ms(call),
+                      "enqueue_ms": enqueue_ms(call), "busy_ms": busy,
+                      "kernels_seen": len(kernels)}
+    gaps = (graph_gap(row["graph"]["value"], row["eager"]["value"]),
+            graph_gap(row["graph"]["grad"], row["eager"]["grad"]))
+    out["headline"] = summary = {
+        "bits": gaps == (0.0, 0.0), "gap": gaps,
+        **{f"{k}_{label}": row[label][k] for label in row
+           for k in ("launches", "event_ms", "enqueue_ms", "busy_ms", "kernels_seen")}}
+    print(f"  headline SE n={N_HEAD} f32, graph vs eager: "
+          f"{'equal bits' if summary['bits'] else f'gap {gaps}'}; " + ", ".join(
+              f"{label} {r['event_ms']:.4f} ms events, {r['enqueue_ms']:.4f} ms enqueue, "
+              f"{r['busy_ms']:.4f} ms busy, launches {r['launches']}"
+              for label, r in row.items()), flush=True)
+    if any(r["launches"] != (1, 1) for r in row.values()) or not all(
+            gap <= bar for gap, bar in zip(gaps, GRAPH_BARS["headline"])):
+        fail(f"phase 32: the graphed headline's launches or gap {gaps}")
+
+    gpa = student_t_study.config5_model(dev)
+    logprob, x0, _, _ = gpa.make_logprob()
+    theta = student_t_study.chain_starts(x0, student_t_study.CHAINS, 17)
+    vg = batched_value_and_grad(logprob)
+    t0, g0 = hmc.start(vg, theta)
+    minv = torch.linspace(0.5, 1.5, theta.shape[1], dtype=theta.dtype, device=dev)
+    eps = torch.tensor(student_t_study.EPS0, dtype=theta.dtype, device=dev)
+    row = {}
+    for label, way in ways.items():
+        @way
+        def call(seed=32):
+            stream = hmc.RandomStream(torch.Generator(device=dev).manual_seed(seed))
+            # L in 5..15: sharded_hmc's path lengths
+            return hmc.hmc_iteration(vg, theta, t0, g0, stream, eps, 5, 15, minv)
+        res, n = launches(call)
+        row[label] = {"out": res, "launches": n, "event_ms": time_ms(call, reps=5),
+                      "enqueue_ms": enqueue_ms(call, reps=5)}
+    gaps = [graph_gap(a, b) for a, b in zip(row["graph"]["out"][:4], row["eager"]["out"][:4])]
+    same_decisions = torch.equal(row["graph"]["out"][4], row["eager"]["out"][4])
+    out["hmc_transition"] = summary = {
+        "chains": student_t_study.CHAINS, "bits": max(gaps) == 0.0 and same_decisions,
+        "gap": max(gaps), "same_decisions": same_decisions,
+        **{f"{k}_{label}": row[label][k] for label in row
+           for k in ("launches", "event_ms", "enqueue_ms")}}
+    print(f"  one HMC iteration, configuration #5 ({student_t_study.CHAINS} chains), graph vs "
+          f"eager: {'equal bits' if summary['bits'] else f'gap {max(gaps):.3e}'}, decisions "
+          f"equal {same_decisions}; " + ", ".join(
+              f"{label} {r['event_ms']:.4f} ms events, {r['enqueue_ms']:.4f} ms enqueue, "
+              f"launches {r['launches']}" for label, r in row.items()), flush=True)
+    if any(r["launches"] != (15, 15) for r in row.values()) or not same_decisions or \
+            max(gaps) > GRAPH_BARS["sampler"][0]:
+        fail(f"phase 32: the graphed HMC iteration's launches, decisions or gap {gaps}")
+
+    m2 = gpa_study.config2_model(dev)
+    row = {}
+    for label, way in ways.items():
+        gen = torch.Generator(device=dev).manual_seed(32)
+        *target, a, b = gpa_study.chain_starts(m2, gpa_study.CHAINS, gen)
+        res, n = launches(lambda: way(gpa_study.outer_iterations)(target, a, b, gen, 1))
+        row[label] = {"out": (res.samples, res.final, res.final_target), "launches": n,
+                      **{k: v for k, v in gpa_study.one_iteration(
+                          dev, gpa_study.CHAINS, eager=label == "eager").items()
+                         if k in ("enqueue_ms", "event_ms", "busy_ms")}}
+    gaps = [graph_gap(a, b) for a, b in zip(row["graph"]["out"], row["eager"]["out"])]
+    out["split_outer_iteration"] = summary = {
+        "chains": gpa_study.CHAINS, "bits": max(gaps) == 0.0, "gap": max(gaps),
+        **{f"{k}_{label}": row[label][k] for label in row
+           for k in ("launches", "event_ms", "enqueue_ms", "busy_ms")}}
+    same = "equal bits" if summary["bits"] else f"gap {max(gaps):.3e}"
+    print(f"  one split outer iteration, configuration #2 ({gpa_study.CHAINS} chains), graph "
+          f"vs eager: {same}; " + ", ".join(
+              f"{label} {r['event_ms']:.2f} ms events, {r['enqueue_ms']:.2f} ms enqueue, "
+              f"{r['busy_ms']:.2f} ms busy, launches {r['launches']}"
+              for label, r in row.items()), flush=True)
+    if any(r["launches"] != (17, 16) for r in row.values()) or \
+            max(gaps) > GRAPH_BARS["sampler"][0]:
+        fail(f"phase 32: the graphed split iteration's launches or gap {gaps}")
+
+    # a model's graphs go with it, and the pool's memory with the last graph
+    graphs.clear()
+    base = torch.cuda.memory_reserved(dev)
+    m = gp.GPE(Xh.astype(np.float32), yh.astype(np.float32), gp.MeanZero(), gp.SE(0.0, 0.0),
+               lognoise=-1.0, device=dev)
+    m.target_and_dtarget()
+    held = torch.cuda.memory_reserved(dev) - base
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_reserved(dev) - base
+    out["pool_release"] = {"held_bytes": held, "left_bytes": left}
+    print(f"  a dropped model's graph: {held} bytes reserved with it, {left} after it",
+          flush=True)
+    if held <= 0 or left > 0.1 * held:
+        fail(f"phase 32: a dropped model's graph left {left} of {held} bytes reserved")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2109,6 +2271,12 @@ def main() -> int:
     n_table, table_errs = phase_compositions(dev)
     print(f"phase 31: {time.perf_counter() - t0:.1f} s", flush=True)
     main_launches = [a + b for a, b in zip(main_launches, n_table)]
+    # 32. the CUDA graphs against eager
+    t0 = time.perf_counter()
+    print(f"phase 32: the CUDA graphs against eager, card {card}", flush=True)
+    graphed = phase_graphs(dev)
+    print("graphs against eager: " + json.dumps(graphed))
+    print(f"phase 32: {time.perf_counter() - t0:.1f} s", flush=True)
     dist_errs = {k: max(dist[p]["max_abs_err"][k] for p in dist) for k in ("gram", "gram_vjp")}
     for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs,
                  config5["max_abs_err"], dist_errs, table_errs):

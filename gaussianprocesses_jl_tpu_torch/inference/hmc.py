@@ -7,7 +7,10 @@ written for one chain, and `batched_value_and_grad` batches it with
 chain, so the kernels under it launch once for all of them. The sampler's
 own loop is plain PyTorch over (C, D) tensors, with the JAX package's
 fixed-Lmax leapfrog masked per chain for the randomized path length; it
-reads nothing back to the host.
+reads nothing back to the host. On the card one transition of every chain
+(all Lmax leapfrog steps) is one CUDA graph (`utils/graphs.py`), the
+counterpart of the JAX package's leapfrog `lax.scan`; its draws are made
+outside the graph, from the same generator in the same order.
 
 Reference semantics kept: path length L ~ U{Lmin..Lmax} and step size eps;
 a proposal whose endpoint target is non-finite is rejected; the sample
@@ -27,7 +30,9 @@ from typing import Callable
 
 import torch
 
-__all__ = ["hmc", "HMCResult", "RandomStream", "as_stream", "batched_value_and_grad",
+from ..utils import graphs
+
+__all__ = ["hmc", "HMCResult", "RandomStream", "as_stream", "batched_value_and_grad", "start",
            "hmc_transition", "hmc_iteration"]
 
 
@@ -86,14 +91,22 @@ def batched_value_and_grad(logprob: Callable, *rest_dims):
     """vg(theta (C, D), *rest) -> (target (C,), gradient (C, D)) of a
     per-chain log target `logprob(theta, *rest)`, batched over chains with
     torch.func; `rest_dims` are vmap's in_dims of the extra arguments
-    (0: per chain, None: shared)."""
+    (0: per chain, None: shared). `vg.__wrapped__` is `logprob`: the
+    samplers' CUDA graphs of vg are kept for it."""
     gv = torch.func.vmap(torch.func.grad_and_value(logprob), in_dims=(0, *rest_dims))
 
     def vg(theta, *rest):
         g, t = gv(theta, *rest)
         return t, g
 
+    vg.__wrapped__ = logprob
     return vg
+
+
+def _owner(vg: Callable):
+    """What the graphs of `vg` are kept for: the log target it wraps, so a
+    second run of the same target replays them; else vg itself."""
+    return getattr(vg, "__wrapped__", vg)
 
 
 def _finite0(g):
@@ -110,7 +123,21 @@ def _col(x, theta):
     return x[:, None] if x.ndim == 1 else x
 
 
-def hmc_transition(vg: Callable, theta, tgt, grad, nu0, L, log_u, eps, Lmax: int, minv=None):
+def start(vg: Callable, theta, rest=()):
+    """(target (C,), gradient (C, D)) of `vg(theta, *rest)` at a chain's
+    start, a non-finite gradient set to 0 (a -inf start, say from a failed
+    f32 Cholesky, would freeze the chain; 0 lets it reach finite
+    proposals). On the card one CUDA graph, kept for `_owner(vg)`."""
+
+    def fn(th, *r):
+        t, g = vg(th, *r)
+        return t, _finite0(g)
+
+    return graphs.run(_owner(vg), fn, theta, *rest, static="start")
+
+
+def hmc_transition(vg: Callable, theta, tgt, grad, nu0, L, log_u, eps, Lmax: int, minv=None,
+                   rest=()):
     """One HMC transition of every chain from given draws: the deterministic
     core of `hmc_iteration` (the body of the reference's iteration loop).
 
@@ -119,6 +146,8 @@ def hmc_transition(vg: Callable, theta, tgt, grad, nu0, L, log_u, eps, Lmax: int
     the log uniforms of the accept tests; eps a scalar or (C,); `minv` the
     diagonal inverse mass matrix M^-1 (None: the identity). Positions move
     by eps M^-1 nu; the kinetic energy is nu^T M^-1 nu / 2.
+
+    `rest`: further arguments of every `vg(theta, *rest)` call.
 
     Returns (theta', tgt', grad', accept_prob, accepted). The leapfrog runs
     a fixed Lmax steps, each masked per chain beyond its L. Non-finite
@@ -139,7 +168,7 @@ def hmc_transition(vg: Callable, theta, tgt, grad, nu0, L, log_u, eps, Lmax: int
     for step in range(Lmax):
         active = (step < L) & ~bad
         th_n = th + eps * minv * nu
-        t_n, g_n = vg(th_n)
+        t_n, g_n = vg(th_n, *rest)
         # the force: the gradient where finite, 0 elsewhere (glide)
         g_eff = _finite0(g_n)
         fin = torch.isfinite(th_n).all(-1)
@@ -168,13 +197,22 @@ def hmc_transition(vg: Callable, theta, tgt, grad, nu0, L, log_u, eps, Lmax: int
 
 
 def hmc_iteration(vg: Callable, theta, tgt, grad, stream: RandomStream, eps, Lmin: int,
-                  Lmax: int, minv=None):
+                  Lmax: int, minv=None, rest=()):
     """One HMC transition of every chain, its momenta, path lengths and
-    accept uniforms drawn from `stream`."""
+    accept uniforms drawn from `stream`. On the card the transition is one
+    CUDA graph, kept for `_owner(vg)` and Lmax, its inputs the states, the
+    draws, eps, M^-1 and `rest`."""
     C, D = theta.shape
     z, L, u = stream.hmc(C, D, Lmin, Lmax, theta)
-    nu0 = z if minv is None else z / torch.sqrt(_like(minv, theta))
-    return hmc_transition(vg, theta, tgt, grad, nu0, L, torch.log(u), eps, Lmax, minv)
+    if minv is not None:
+        minv = _like(minv, theta)
+    nu0 = z if minv is None else z / torch.sqrt(minv)
+
+    def fn(th, t, g, nu, L_, log_u, eps_, minv_, *r):
+        return hmc_transition(vg, th, t, g, nu, L_, log_u, eps_, Lmax, minv_, r)
+
+    return graphs.run(_owner(vg), fn, theta, tgt, grad, nu0, L, torch.log(u), _like(eps, theta),
+                      minv, *rest, static=("transition", Lmax))
 
 
 def hmc(logprob_fn: Callable, theta0, generator=None, n_iter: int = 1000, eps: float = 0.1,
@@ -185,17 +223,16 @@ def hmc(logprob_fn: Callable, theta0, generator=None, n_iter: int = 1000, eps: f
     logprob_fn: (D,) -> scalar log target (may be -inf or NaN on bad
     regions). generator: a torch.Generator on theta0's device, or a
     RandomStream. Returns all n_iter states (burn and thin are slicing
-    afterwards)."""
+    afterwards). On the card the start and every transition replay CUDA
+    graphs kept for `logprob_fn`."""
     single = theta0.ndim == 1
     theta = (theta0[None] if single else theta0).detach()
     C, D = theta.shape
     stream = as_stream(generator, theta)
     vg = batched_value_and_grad(logprob_fn)
+    eps = _like(eps, theta)
     with torch.no_grad():
-        t, g = vg(theta)
-        # a non-finite start gradient (a -inf start, say from a failed f32
-        # Cholesky) would freeze the chain; 0 lets it reach finite proposals
-        g = _finite0(g)
+        t, g = start(vg, theta)
         samples = theta.new_empty((C, n_iter, D))
         acc = torch.zeros(C, dtype=torch.int64, device=theta.device)
         for i in range(n_iter):

@@ -21,6 +21,13 @@ averaging adapts both step sizes over the additive warmup iterations.
 Per outer iteration the gram kernel launches 1 + 1 + Lmax_b times (the
 factor, the B update's start and its leapfrog steps) and its VJP kernel
 1 + Lmax_b times, whatever the number of chains.
+
+On the card the factor, each block's start and each block's transition
+replay CUDA graphs (`utils/graphs.py`), the counterparts of the JAX
+package's compiled sweep: kept for `precompute`, `logprob_a` and
+`logprob_b`, so a second run of the same target captures nothing. The A
+graphs take the cached factor's tensors as inputs. The draws and the dual
+averaging stay outside every graph.
 """
 from __future__ import annotations
 
@@ -30,9 +37,10 @@ from typing import Callable
 
 import torch
 
-from .hmc import as_stream, batched_value_and_grad, hmc_iteration
+from ..utils import graphs
+from .hmc import as_stream, batched_value_and_grad, hmc_iteration, start
 
-__all__ = ["split_hmc", "SplitHMCResult", "da_init", "da_update"]
+__all__ = ["split_hmc", "SplitHMCResult", "da_init", "da_update", "block_a"]
 
 
 @dataclass
@@ -72,17 +80,34 @@ def da_update(a_mean, st, target_accept: float = 0.8):
 
 
 def _cached(precompute: Callable, b):
-    """precompute over the chains, without gradients: (the factor module of
-    chain 0's structure, its tensors batched (C, ...))."""
-    held = {}
+    """precompute over the chains, without gradients: the factor module
+    with its tensors batched (C, ...); on the card one CUDA graph kept for
+    `precompute`."""
 
-    def leaves(b1):
-        held["aux"] = precompute(b1)
-        return held["aux"].tensors()
+    def fn(b_):
+        held = {}
+
+        def leaves(b1):
+            held["aux"] = precompute(b1)
+            return held["aux"].tensors()
+
+        out = torch.func.vmap(leaves)(b_)
+        return held["aux"].with_tensors(out)
 
     with torch.no_grad():
-        out = torch.func.vmap(leaves)(b)
-    return held["aux"], out
+        return graphs.run(precompute, fn, b, static="precompute")
+
+
+def block_a(logprob_a: Callable) -> Callable:
+    """vg(a (C, Da), aux, b (C, Db)) -> (target, gradient in a): block A's
+    value and gradient over the chains, against `aux`, the factor module
+    `_cached` batched."""
+    def vg(a, aux, b):
+        lp = lambda a1, lv, b1: logprob_a(a1, aux.with_tensors(lv), b1)  # noqa: E731
+        return batched_value_and_grad(lp, 0, 0)(a, aux.tensors(), b)
+
+    vg.__wrapped__ = logprob_a
+    return vg
 
 
 def split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Callable, a0, b0,
@@ -120,6 +145,7 @@ def split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Callable, a0
     draws = a.new_empty((C, total * a_iters, Da + Db))
     acc_a = torch.zeros(C, dtype=torch.int64, device=a.device)
     acc_b = torch.zeros_like(acc_a)
+    vg_a = block_a(logprob_a)
     vg_b = batched_value_and_grad(logprob_b, 0)
     t_b = None
     with torch.no_grad():
@@ -130,17 +156,13 @@ def split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Callable, a0
             eps_b_c = st_b[0] if in_warm else torch.exp(st_b[2])
 
             # A sweep against the cached factor
-            aux, leaves = _cached(precompute, b)
-            vg_a0 = batched_value_and_grad(
-                lambda a1, lv, b1: logprob_a(a1, aux.with_tensors(lv), b1), 0, 0)
-            vg_a = lambda a1: vg_a0(a1, leaves, b)  # noqa: E731
-            t_a, g_a = vg_a(a)
-            g_a = torch.where(torch.isfinite(g_a), g_a, torch.zeros_like(g_a))
+            aux = _cached(precompute, b)
+            t_a, g_a = start(vg_a, a, (aux, b))
             acc_sweep = torch.zeros_like(acc_a)
             ap_sum = torch.zeros_like(st_a[0])
             for j in range(a_iters):
                 a, t_a, g_a, aprob, accd = hmc_iteration(vg_a, a, t_a, g_a, stream, eps_a_c,
-                                                         Lmin, Lmax)
+                                                         Lmin, Lmax, rest=(aux, b))
                 acc_sweep += accd
                 ap_sum = ap_sum + aprob
                 k = it * a_iters + j
@@ -148,11 +170,9 @@ def split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Callable, a0
                 draws[:, k, Da:] = b
 
             # B update, refactorizing at every leapfrog step
-            vg_b_a = lambda b1: vg_b(b1, a)  # noqa: E731
-            t_b, g_b = vg_b_a(b)
-            g_b = torch.where(torch.isfinite(g_b), g_b, torch.zeros_like(g_b))
-            b, t_b, g_b, aprob_b, accd_b = hmc_iteration(vg_b_a, b, t_b, g_b, stream, eps_b_c,
-                                                         Lmin_b, Lmax_b)
+            t_b, g_b = start(vg_b, b, (a,))
+            b, t_b, g_b, aprob_b, accd_b = hmc_iteration(vg_b, b, t_b, g_b, stream, eps_b_c,
+                                                         Lmin_b, Lmax_b, rest=(a,))
             if in_warm:
                 st_a = da_update(ap_sum / a_iters, st_a, target_accept)
                 st_b = da_update(aprob_b, st_b, target_accept)

@@ -8,6 +8,8 @@ library's Cholesky. The flat order is [v; lik; mean; kernel], as in the JAX
 package. The model's tensors live on one device in the data's float dtype:
 the card unless the caller passes `device="cpu"`. Every target here is
 written for one chain; the samplers batch chains with `torch.func.vmap`.
+On the card `target_and_dtarget` and the optimizer's objective replay one
+CUDA graph, as the GPE's do (`models/gpe.py`).
 """
 from __future__ import annotations
 
@@ -20,9 +22,10 @@ from ..ops.kernels import Kernel
 from ..ops.likelihoods import Likelihood
 from ..ops.linalg import require_pd
 from ..ops.means import Mean, MeanZero
+from ..utils import graphs
 from ..utils.modules import Module, module, replace
 from .covariance import FullCovariance
-from .gpe import _as_X, _device, _embed, _mvn_draws
+from .gpe import _as_X, _device, _embed, _mvn_draws, value_and_grad
 
 __all__ = ["GPAParams", "GPA", "gpa_nugget", "gpa_ll", "gpa_target", "gpa_predict_f"]
 
@@ -113,6 +116,11 @@ def gpa_predict_f(params: GPAParams, X, y, Xs, covstrat=FullCovariance(),
     return params.mean.mean(Xs) + mu_cross, cov
 
 
+def _gpa_value_and_grad(*args):
+    """The GPA target's `value_and_grad`, as the CUDA graphs capture it."""
+    return value_and_grad(gpa_target, *args)
+
+
 class GPA:
     """Latent GP with a non-Gaussian likelihood, for the samplers of
     `inference/` and the optimizer. `device` defaults to the CUDA device
@@ -186,11 +194,10 @@ class GPA:
             return gpa_target(self.params, self.x, self.y, self.covstrat)[0]
 
     def target_and_dtarget(self):
-        """(target, gradient w.r.t. the flat params)."""
-        vec = self.params.flat_params().detach().requires_grad_()
-        t = gpa_target(self.params.with_flat_params(vec), self.x, self.y, self.covstrat)[0]
-        (g,) = torch.autograd.grad(t, vec)
-        return t.detach(), g
+        """(target, gradient w.r.t. the flat params), one CUDA graph on the
+        card, kept for this model."""
+        return graphs.run(self, _gpa_value_and_grad, self.params.flat_params().detach(), None,
+                          None, self.params, self.x, self.y, self.covstrat)
 
     @property
     def dtarget(self):
@@ -305,14 +312,14 @@ class GPA:
 
     def make_objective(self, lik=True, domean=True, kern=True):
         """(vg, x0, embed, blocks), vg(sub) = (-logprob, its gradient) over
-        [v; selected blocks]: v is always free."""
-        logprob, x0, embed, blocks = self.make_logprob(lik=lik, domean=domean, kern=kern)
+        [v; selected blocks]: v is always free. One CUDA graph on the card."""
+        embed, x0, blocks = self._block_plumbing((lik, domean, kern))
+        args = (self.params.flat_params().detach(), (True, lik, domean, kern), self.params,
+                self.x, self.y, self.covstrat)
 
         def vg(sub):
-            sub = sub.detach().requires_grad_()
-            v = -logprob(sub)
-            (g,) = torch.autograd.grad(v, sub)
-            return v.detach(), g
+            t, g = graphs.run(self, _gpa_value_and_grad, sub, *args)
+            return -t, -g
 
         return vg, x0, embed, blocks
 

@@ -4,6 +4,15 @@ The marginal likelihood is one function of the hyperparameters; its
 gradient comes from autograd on the flat parameter vector. Data are
 row-major (n, d). The model's tensors live on one device in the data's
 float dtype: the card unless the caller passes `device="cpu"`.
+
+On the card the value and gradient (`target_and_dtarget`, and the
+optimizer's objective from `make_objective`) replay one CUDA graph
+(`utils/graphs.py`), the counterpart of the JAX package's jitted
+`value_and_grad`: its inputs are the flat parameters, the parameter
+module's tensors, the data and the strategy's tensors, so `set_params` and
+a `fit` of the same size replay it, and a new size (`push`) or structure
+(a prior, a kernel) captures a graph of its own. The graphs are kept for
+the model (its last `graphs.PER_OWNER`) and go with it.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ import torch
 from ..ops.kernels import Kernel, SEIso
 from ..ops.linalg import require_pd
 from ..ops.means import Mean, MeanZero
+from ..utils import graphs
 from ..utils.modules import Module, module, replace
 from ..utils.params import Param, wrap_param
 from .covariance import FullCovariance
@@ -96,6 +106,23 @@ def gpe_predict_f(params: GPEParams, X, y, Xs, covstrat=FullCovariance(),
     mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov,
                                          blockindpred)
     return params.mean.mean(Xs) + mu_cross, cov
+
+
+def value_and_grad(target, sub, full0, flags, params, X, y, covstrat):
+    """(target, its gradient in sub) of `target(params, X, y, covstrat)[0]`
+    at the flat parameters `sub` of the blocks `flags` selects, the others
+    taken from `full0` (flags None: sub is the whole flat vector)."""
+    with torch.enable_grad():
+        sub = sub.detach().requires_grad_()
+        vec = sub if flags is None else _embed(full0, sub, params.block_slices(), flags)
+        t = target(params.with_flat_params(vec), X, y, covstrat)[0]
+        (g,) = torch.autograd.grad(t, sub)
+    return t.detach(), g
+
+
+def _gpe_value_and_grad(*args):
+    """The GPE target's `value_and_grad`, as the CUDA graphs capture it."""
+    return value_and_grad(gpe_target, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -215,12 +242,10 @@ class GPE:
             return gpe_target(self.params, self.x, self.y, self.covstrat)[0]
 
     def target_and_dtarget(self):
-        """(target, gradient w.r.t. the flat params): the hot path."""
-        vec = self.params.flat_params().detach().requires_grad_()
-        t = gpe_target(self.params.with_flat_params(vec), self.x, self.y,
-                       self.covstrat)[0]
-        (g,) = torch.autograd.grad(t, vec)
-        return t.detach(), g
+        """(target, gradient w.r.t. the flat params): the hot path, one CUDA
+        graph on the card, kept for this model."""
+        return graphs.run(self, _gpe_value_and_grad, self.params.flat_params().detach(), None,
+                          None, self.params, self.x, self.y, self.covstrat)
 
     @property
     def dtarget(self):
@@ -368,15 +393,15 @@ class GPE:
 
     def make_objective(self, noise=True, domean=True, kern=True):
         """(vg, x0, embed, blocks) where vg(sub) = (-logprob, its gradient)
-        over the selected blocks."""
-        logprob, x0, embed, blocks = self.make_logprob(
-            noise=noise, domean=domean, kern=kern)
+        over the selected blocks, one CUDA graph on the card."""
+        flags = (noise, domean, kern)
+        embed, x0, blocks = self._block_plumbing(flags)
+        args = (self.params.flat_params().detach(), flags, self.params, self.x, self.y,
+                self.covstrat)
 
         def vg(sub):
-            sub = sub.detach().requires_grad_()
-            v = -logprob(sub)
-            (g,) = torch.autograd.grad(v, sub)
-            return v.detach(), g
+            t, g = graphs.run(self, _gpe_value_and_grad, sub, *args)
+            return -t, -g
 
         return vg, x0, embed, blocks
 

@@ -489,6 +489,18 @@ class ProdKernel(Kernel):
         return self.k1.diag(X) * self.k2.diag(X)
 
 
+def _runs(idx):
+    """[(a, b)]: the runs of consecutive values of idx, in order, as
+    half-open ranges."""
+    runs = []
+    for i in idx:
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    return [tuple(r) for r in runs]
+
+
 @module(static=("active_dims",))
 class Masked(Kernel):
     """Apply `kern` to a subset of input dimensions."""
@@ -497,8 +509,9 @@ class Masked(Kernel):
     active_dims: tuple = ()
 
     def _sel(self, X):
-        idx = torch.tensor(self.active_dims, dtype=torch.long, device=X.device)
-        return X.index_select(1, idx)
+        # column slices, one a run of consecutive dims: no index tensor to
+        # copy to the card, so a CUDA graph can capture it
+        return torch.cat([X[:, a:b] for a, b in _runs(self.active_dims)], dim=1)
 
     def gram(self, X1, X2=None):
         return self.kern.gram(self._sel(X1), None if X2 is None else self._sel(X2))
@@ -524,13 +537,18 @@ class FixedKernel(Kernel):
 
     def flat_params(self):
         inner = self.kern.flat_params()
-        return inner[list(self.free_idx)]
+        # one-element slices, not an index list copied to the card
+        return torch.cat([inner[:0]] + [inner[i:i + 1] for i in self.free_idx])
 
     def with_flat_params(self, vec):
         inner = self.kern.flat_params()
         if self.free_idx:
-            idx = torch.tensor(self.free_idx, dtype=torch.long, device=inner.device)
-            inner = inner.index_put((idx,), vec.to(inner.dtype))
+            # the inner vector rebuilt from one-element slices of it and of
+            # vec: no index tensor to copy to the card
+            vec = vec.to(inner.dtype)
+            pos = {i: k for k, i in enumerate(self.free_idx)}
+            inner = torch.cat([vec[pos[i]:pos[i] + 1] if i in pos else inner[i:i + 1]
+                               for i in range(inner.shape[0])])
         return replace(self, kern=self.kern.with_flat_params(inner))
 
     @property

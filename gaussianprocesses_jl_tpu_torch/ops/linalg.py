@@ -8,8 +8,9 @@ never turns on TF32, which failed to factorize GP grams at a noise variance
 of 1e-2 or below.
 
 `dense_quad_logdet` keeps the JAX package's gradient: its backward forms
-K^-1 explicitly from the triangular inverse (`tri_inv_lower`,
-`tri_syrk_lower`) instead of differentiating through the Cholesky.
+K^-1 explicitly from the triangular inverse (`explicit_kinv`:
+`tri_inv_lower`, `tri_syrk_lower`) instead of differentiating through the
+Cholesky.
 """
 from __future__ import annotations
 
@@ -107,11 +108,13 @@ def blocked_cholesky(K: torch.Tensor, block: int = 512) -> tuple:
     """Left-looking blocked Cholesky with fused log-det: (L, logdet).
 
     Panels are factorized by `torch.linalg.cholesky_ex` and solved through
-    their triangular inverse; every cross-panel update is one GEMM. The
+    their triangular inverse, one triangular solve against the identity
+    (on an H100 faster than `tri_inv_lower`'s recursion at blocks 512 and
+    1000, `perf/kinv_study.py`); every cross-panel update is one GEMM. The
     trailing panel is factorized at its true size. NaNs propagate on an
     indefinite input (gate with safe_cholesky). Not routed by the package:
-    whether it beats the library's factorization on the card is not
-    measured yet."""
+    `torch.linalg.cholesky_ex` is faster on the card (`perf/bench_study.py
+    cholesky`)."""
     n = K.shape[-1]
     B = block
     if n <= B:
@@ -130,7 +133,8 @@ def blocked_cholesky(K: torch.Tensor, block: int = 512) -> tuple:
             Acol = Acol - P @ P[:bk, :].T
         lkk = torch.linalg.cholesky_ex(Acol[:bk, :bk])[0]
         if k + 1 < nb:
-            Lpan = Acol[bk:, :] @ tri_inv_lower(lkk).T
+            eye = torch.eye(bk, dtype=K.dtype, device=K.device)
+            Lpan = Acol[bk:, :] @ torch.linalg.solve_triangular(lkk, eye, upper=False).T
             cols.append(torch.cat([torch.tril(lkk), Lpan], dim=0))
         else:
             cols.append(torch.tril(lkk))
@@ -163,8 +167,7 @@ def tri_inv_lower(L: torch.Tensor, block: int = 256) -> torch.Tensor:
         # rows/cols never couple back into the leading n x n block
         Lp = L.new_zeros((npad, npad))
         Lp[:n, :n] = L
-        idx = torch.arange(n, npad, device=L.device)
-        Lp[idx, idx] = 1.0
+        Lp.diagonal()[n:] = 1.0
     diag_blocks = torch.stack(
         [Lp[i * block:(i + 1) * block, i * block:(i + 1) * block] for i in range(nb)])
     eye_b = torch.eye(block, dtype=L.dtype, device=L.device)
@@ -191,10 +194,12 @@ def _tri_inv_rec(Dinv: torch.Tensor, Lp: torch.Tensor, block: int, i0: int,
     return torch.cat([top, torch.cat([X, iC], dim=1)], dim=0)
 
 
-def tri_syrk_lower(Linv: torch.Tensor, block: int = 2048) -> torch.Tensor:
+def tri_syrk_lower(Linv: torch.Tensor, block: int = 1024) -> torch.Tensor:
     """Linv^T @ Linv for LOWER-TRIANGULAR Linv: block (i, j) needs only rows
     >= i*block of Linv, and the upper block triangle mirrors the lower, so
-    about a third of the full GEMM's flops."""
+    about a third of the full GEMM's flops. Block 1024: on an H100 the
+    fastest of 512-4096 at n = 3000 and in f32 at 16384 (`perf/kinv_study.py`;
+    the JAX package's 2048 was chosen on a TPU)."""
     n = Linv.shape[-1]
     if n <= block:
         return Linv.T @ Linv
@@ -211,6 +216,19 @@ def tri_syrk_lower(Linv: torch.Tensor, block: int = 2048) -> torch.Tensor:
         row = [blocks[(i, j)] if j <= i else blocks[(j, i)].T for j in range(nb)]
         rows.append(torch.cat(row, dim=1))
     return torch.cat(rows, dim=0)
+
+
+def explicit_kinv(L: torch.Tensor, w: torch.Tensor) -> tuple:
+    """(K^-1, alpha = K^-1 r) from the lower factor L of K and w = L^-1 r:
+    the explicit inverse of `dense_quad_logdet`'s backward, as the JAX
+    package forms it. The route is the card's fastest of those
+    `perf/kinv_study.py` measures inside the graphed headline: L^-1 by the
+    recursive doubling (block 256), which beat one cuBLAS triangular solve
+    by 1.7-2.1x at n = 3000 and 16384 on an H100, and the whole K^-1 beat
+    `torch.cholesky_inverse` by 2.1-2.8x; then the triangular product at
+    block 1024."""
+    Linv = tri_inv_lower(L)
+    return tri_syrk_lower(Linv), Linv.T @ w
 
 
 _GRAD_GEMM_PRECISIONS = ("highest",)
@@ -250,9 +268,7 @@ class _DenseQuadLogdet(torch.autograd.Function):
     @staticmethod
     def backward(ctx, quad_bar, logdet_bar, _ok, _L, _w):
         L, w = ctx.saved_tensors
-        Linv = tri_inv_lower(L)
-        alpha = Linv.T @ w  # K^-1 r
-        Kinv = tri_syrk_lower(Linv)
+        Kinv, alpha = explicit_kinv(L, w)
         # d quad / dK = -αα^T ; d logdet / dK = K^-1  (both symmetric)
         K_bar = logdet_bar * Kinv - quad_bar * torch.outer(alpha, alpha)
         r_bar = (2.0 * quad_bar) * alpha

@@ -29,6 +29,10 @@ on how many processes share it:
     each chain. A test passes a function of `it` in place of the seed to
     replay the JAX package's draws.
 
+On the card each chain block's start and transitions replay the CUDA
+graphs of `inference/` (`utils/graphs.py`), kept for the log targets; the
+collectives, the draws and the checkpoints stay outside every graph.
+
 So a resumed or segmented run, or one over another number of processes,
 gives the bits of one uninterrupted run, and a checkpoint needs no
 generator state: `sharded_hmc` writes its state (per-chain leaves gathered
@@ -47,8 +51,8 @@ import torch
 import torch.distributed as dist
 
 from ..inference.ess import _safe, ess_iteration
-from ..inference.hmc import RandomStream, _finite0, batched_value_and_grad, hmc_iteration
-from ..inference.split import _cached, da_init, da_update
+from ..inference.hmc import RandomStream, batched_value_and_grad, hmc_iteration, start
+from ..inference.split import _cached, block_a, da_init, da_update
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .mesh import Mesh
 
@@ -179,10 +183,10 @@ def sharded_hmc(logprob_fn: Callable, theta0, seed, mesh: Mesh, *, axis: str = "
     with torch.no_grad():
         theta = _rows(theta0, fleet)
         c, dt = theta.shape[0], theta.dtype
-        tgt, grad = vg(theta)
+        tgt, grad = start(vg, theta)
         eps_t = torch.as_tensor(eps0, dtype=dt, device=theta.device)
         eps, mu, leb, hbar, t = da_init(eps_t)
-        carry = {"theta": theta, "tgt": tgt, "grad": _finite0(grad),
+        carry = {"theta": theta, "tgt": tgt, "grad": grad,
                  "acc": torch.zeros(c, dtype=dt, device=theta.device),
                  "da": (eps, mu, leb, hbar, t), "minv": torch.ones(D, dtype=dt, device=theta.device),
                  "s1": torch.zeros_like(theta), "s2": torch.zeros_like(theta), "n_win": 0}
@@ -302,6 +306,7 @@ def sharded_split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Call
     Lmin_b = Lmin if Lmin_b is None else Lmin_b
     Lmax_b = Lmax if Lmax_b is None else Lmax_b
     total = n_warmup + n_iter
+    vg_a = block_a(logprob_a)
     vg_b = batched_value_and_grad(logprob_b, 0)
 
     with torch.no_grad():
@@ -315,25 +320,21 @@ def sharded_split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Call
         acc_b = torch.zeros_like(acc_a)
         t_b = None
         seg = segment_iters or total
-        for start in range(0, total, seg):
-            for it in range(start, min(start + seg, total)):
+        for first in range(0, total, seg):
+            for it in range(first, min(first + seg, total)):
                 stream = fleet.stream(it)
                 in_warm = it < n_warmup
                 eps_a = st_a[0] if in_warm else torch.exp(st_a[2])
                 eps_b = st_b[0] if in_warm else torch.exp(st_b[2])
 
                 # the A sweep against each chain's cached factor
-                aux, leaves = _cached(precompute, b)
-                vg_a0 = batched_value_and_grad(
-                    lambda a1, lv, b1: logprob_a(a1, aux.with_tensors(lv), b1), 0, 0)
-                vg_a = lambda a1: vg_a0(a1, leaves, b)  # noqa: E731
-                t_a, g_a = vg_a(a)
-                g_a = _finite0(g_a)
+                aux = _cached(precompute, b)
+                t_a, g_a = start(vg_a, a, (aux, b))
                 acc_sweep = torch.zeros_like(acc_a)
                 ap_sum = torch.zeros(c, dtype=dt, device=dev)
                 for j in range(a_iters):
                     a, t_a, g_a, aprob, accd = hmc_iteration(vg_a, a, t_a, g_a, stream, eps_a,
-                                                             Lmin, Lmax)
+                                                             Lmin, Lmax, rest=(aux, b))
                     acc_sweep += accd
                     ap_sum = ap_sum + aprob
                     # (a_i, the b in force), recorded before the B update
@@ -341,10 +342,9 @@ def sharded_split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Call
                     draws[:, it * a_iters + j, na:] = b
 
                 # the B update, refactorizing at every leapfrog step
-                vg_b_a = lambda b1: vg_b(b1, a)  # noqa: E731
-                t_b, g_b = vg_b_a(b)
-                b, t_b, _, ap_b, acc_b_d = hmc_iteration(vg_b_a, b, t_b, _finite0(g_b), stream,
-                                                         eps_b, Lmin_b, Lmax_b)
+                t_b, g_b = start(vg_b, b, (a,))
+                b, t_b, _, ap_b, acc_b_d = hmc_iteration(vg_b, b, t_b, g_b, stream, eps_b, Lmin_b,
+                                                         Lmax_b, rest=(a,))
 
                 if in_warm:
                     st_a = da_update(fleet.mean(ap_sum / a_iters), st_a, target_accept)

@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from .collectives import all_ok, allreduce_, broadcast_, copy, copy_module, gather_, shift_
@@ -86,12 +85,6 @@ def choose_tile_size(n: int, P_: int, max_B: int = 512) -> int:
     raise ValueError(f"no valid tile size for n={n}, P={P_}")
 
 
-def _perm(nb: int, P_: int):
-    """Block-cyclic column permutation: process p gets global tile-columns
-    {j : j mod P == p}, stored contiguously."""
-    return np.concatenate([np.arange(nb)[np.arange(nb) % P_ == p] for p in range(P_)])
-
-
 def _layout(mesh, axis: str, n: int, B: int):
     """(P, me, nb, nbl) after checking that n tiles by B over P processes."""
     P_ = mesh.shape[axis]
@@ -108,6 +101,17 @@ def _js(me: int, P_: int, nbl: int) -> list:
     return [me + P_ * lj for lj in range(nbl)]
 
 
+def _cols(me: int, P_: int, nbl: int) -> slice:
+    """`_js` as a slice, to index tiles by: no index tensor to copy to the
+    card, so a CUDA graph can capture it."""
+    return slice(me, me + P_ * nbl, P_)
+
+
+def _js_tensor(me: int, P_: int, nbl: int, device) -> torch.Tensor:
+    """`_js` as a tensor made on `device`."""
+    return me + P_ * torch.arange(nbl, device=device)
+
+
 def _to_mat(tiles: torch.Tensor) -> torch.Tensor:
     """(..., nb, nbl, B, B) -> (..., nb B, nbl B): a view of the matrix a
     tile view was made from."""
@@ -121,14 +125,23 @@ def _to_tiles(M: torch.Tensor, B: int) -> torch.Tensor:
     return M.reshape(*M.shape[:-2], n // B, B, c // B, B).transpose(-3, -2)
 
 
-def _rows_of(y: torch.Tensor, js: list, B: int) -> torch.Tensor:
-    """Rows of y (..., n, m) in the blocks js, stacked: (..., len(js) B, m)."""
+def _rows_of(y: torch.Tensor, cols: slice, B: int) -> torch.Tensor:
+    """Rows of y (..., n, m) in the blocks `cols` (a slice of blocks),
+    stacked: (..., blocks B, m)."""
     nb = y.shape[-2] // B
-    if js == list(range(js[0], js[0] + len(js))):
-        return y[..., js[0] * B:(js[0] + len(js)) * B, :]
-    yb = y.reshape(*y.shape[:-2], nb, B, y.shape[-1])
-    idx = torch.as_tensor(js, device=y.device)
-    return yb.index_select(-3, idx).reshape(*y.shape[:-2], len(js) * B, y.shape[-1])
+    yb = y.reshape(*y.shape[:-2], nb, B, y.shape[-1])[..., cols, :, :]
+    return yb.reshape(*y.shape[:-2], -1, y.shape[-1])
+
+
+def _cyclic_to_global(g: torch.Tensor, P_: int, dim: int) -> torch.Tensor:
+    """Blocks gathered along `dim` in the axis's order (process p's blocks
+    p, p + P, ... together) put in global order: block lj P + p is the lj-th
+    of process p, so the order is a transpose of the (P, nbl) split, with no
+    index tensor to copy to the card."""
+    dim %= g.ndim
+    nbl = g.shape[dim] // P_
+    split = g.reshape(*g.shape[:dim], P_, nbl, *g.shape[dim + 1:])
+    return split.transpose(dim, dim + 1).reshape(g.shape)
 
 
 def _gather_blocks(x_loc: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -137,8 +150,7 @@ def _gather_blocks(x_loc: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     g = gather_(x_loc, mesh, axis, dim=-2)
     if P_ == 1:
         return g
-    inv = torch.as_tensor(np.argsort(_perm(g.shape[-2], P_)), device=g.device)
-    return g.index_select(-2, inv)
+    return _cyclic_to_global(g, P_, -2)
 
 
 def tile_and_shard(K: torch.Tensor, B: int, mesh, axis: str = "j") -> torch.Tensor:
@@ -146,7 +158,7 @@ def tile_and_shard(K: torch.Tensor, B: int, mesh, axis: str = "j") -> torch.Tens
     block-cyclic order."""
     P_, me, nb, nbl = _layout(mesh, axis, K.shape[-1], B)
     tiles = K.reshape(nb, B, nb, B).transpose(1, 2)
-    return tiles[:, _js(me, P_, nbl)].contiguous()
+    return tiles[:, _cols(me, P_, nbl)].contiguous()
 
 
 def untile(tiles_loc: torch.Tensor, B: int, mesh, axis: str = "j") -> torch.Tensor:
@@ -154,9 +166,8 @@ def untile(tiles_loc: torch.Tensor, B: int, mesh, axis: str = "j") -> torch.Tens
     the (n, n) matrix."""
     nb = tiles_loc.shape[0]
     P_ = mesh.shape[axis]
-    g = gather_(tiles_loc, mesh, axis, dim=1)
-    inv = torch.as_tensor(np.argsort(_perm(nb, P_)), device=g.device)
-    return g[:, inv].transpose(1, 2).reshape(nb * B, nb * B)
+    g = _cyclic_to_global(gather_(tiles_loc, mesh, axis, dim=1), P_, 1)
+    return g.transpose(1, 2).reshape(nb * B, nb * B)
 
 
 # ---------------------------------------------------------------------------
@@ -172,14 +183,13 @@ def build_tiles(kernel, noise_var, X: torch.Tensor, B: int, mesh, axis: str = "j
     through `copy`. The result is a tile view of the (n, n/P) matrix."""
     n, d = X.shape
     P_, me, nb, nbl = _layout(mesh, axis, n, B)
-    js = _js(me, P_, nbl)
     kern = copy_module(kernel, mesh, axis)
     nv = (noise_var.to(dtype=X.dtype, device=X.device) if isinstance(noise_var, torch.Tensor)
-          else torch.tensor(noise_var, dtype=X.dtype, device=X.device))
+          else X.new_full((), noise_var))
     nv = copy(nv, mesh, axis)
     Xc = copy(X, mesh, axis)
-    Kc = kern.gram(Xc, _rows_of(Xc, js, B))  # (n, nbl B)
-    rows = (torch.as_tensor(js, device=X.device)[:, None] * B
+    Kc = kern.gram(Xc, _rows_of(Xc, _cols(me, P_, nbl), B))  # (n, nbl B)
+    rows = (_js_tensor(me, P_, nbl, X.device)[:, None] * B
             + torch.arange(B, device=X.device)).reshape(-1)
     noise = nv.expand(n)[rows] if nv.ndim == 0 else nv[rows]
     Kc = Kc.index_put((rows, torch.arange(nbl * B, device=X.device)), noise, accumulate=True)
@@ -251,13 +261,12 @@ def _solve_lower(L: torch.Tensor, b: torch.Tensor, B: int, mesh, axis: str) -> t
     tile a step."""
     n = L.shape[-2]
     P_, me, nb, nbl = _layout(mesh, axis, n, B)
-    js = _js(me, P_, nbl)
     y = torch.zeros_like(b)
     for k in range(nb):
         owner, lk, r0 = k % P_, k // P_, k * B
         a = max(0, -(-(k - me) // P_))  # local columns j < k
         if a:
-            s = L[..., r0:r0 + B, :a * B] @ _rows_of(y, js[:a], B)
+            s = L[..., r0:r0 + B, :a * B] @ _rows_of(y, _cols(me, P_, a), B)
         else:
             s = b.new_zeros((*b.shape[:-2], B, b.shape[-1]))
         s = allreduce_(s, mesh, axis)
@@ -291,7 +300,7 @@ def _unwhiten(L: torch.Tensor, v: torch.Tensor, B: int, mesh, axis: str) -> torc
     """L v, v (..., n, m) replicated: the local columns against their rows
     of v, one psum."""
     P_, me, nb, nbl = _layout(mesh, axis, L.shape[-2], B)
-    return allreduce_(L @ _rows_of(v, _js(me, P_, nbl), B), mesh, axis)
+    return allreduce_(L @ _rows_of(v, _cols(me, P_, nbl), B), mesh, axis)
 
 
 def _winv(L: torch.Tensor, B: int, mesh, axis: str) -> torch.Tensor:
@@ -340,10 +349,10 @@ def _bwd_quad(L, w, quad_bar, logdet_bar, B, mesh, axis):
         cols = [V[..., j * B:, :].mT @ W[..., j * B:, lj * B:(lj + 1) * B]
                 for lj, j in enumerate(_js(me, P_, nbl))]  # each (..., nbl B, B)
         blocks = torch.cat(cols, dim=-1).reshape(*G.shape[:-2], nbl, B, nbl * B)
-        Gb[..., _js(q, P_, nbl), :, :] = blocks
+        Gb[..., _cols(q, P_, nbl), :, :] = blocks
         if s + 1 < P_:
             V = shift_(V, mesh, axis)
-    a_cols = _rows_of(alpha.unsqueeze(-1), _js(me, P_, nbl), B).squeeze(-1)
+    a_cols = _rows_of(alpha.unsqueeze(-1), _cols(me, P_, nbl), B).squeeze(-1)
     qb = quad_bar[..., None, None]
     G.mul_(logdet_bar[..., None, None]).sub_(qb * alpha.unsqueeze(-1) * a_cols.unsqueeze(-2))
     return G, 2.0 * quad_bar[..., None] * alpha
@@ -360,7 +369,6 @@ def _bwd_unwhiten(L, f_bar, v, B, mesh, axis):
     n = L.shape[-2]
     P_, me, nb, nbl = _layout(mesh, axis, n, B)
     batch = L.shape[:-2]
-    js = _js(me, P_, nbl)
     Lt = _to_tiles(L, B)  # (..., nb, nbl, B, B)
     gb = f_bar.reshape(*batch, nb, B)
     vb = v.reshape(*batch, nb, B)
@@ -376,7 +384,7 @@ def _bwd_unwhiten(L, f_bar, v, B, mesh, axis):
     Ppart = torch.einsum("...jlca,...jc,cb->...ljab", Lt, gb, mask_cb)  # (..., nbl, nb, B, B)
     M = (suf[..., None] + Ppart) * vb[..., None, :, None, :]
     # phi over global (k, j), rows k local: tril with halved diagonal
-    jt = torch.as_tensor(js, device=L.device)[:, None]
+    jt = _js_tensor(me, P_, nbl, L.device)[:, None]
     coltile = torch.arange(nb, device=L.device)[None, :]
     full = (jt > coltile).to(L.dtype)
     eqt = (jt == coltile).to(L.dtype)
@@ -389,7 +397,7 @@ def _bwd_unwhiten(L, f_bar, v, B, mesh, axis):
     V = W
     for s in range(P_):
         q = (me - s) % P_
-        A1[..., _js(q, P_, nbl), :, :] = torch.einsum("...lmac,...mqcb->...lqab", P2, V)
+        A1[..., _cols(q, P_, nbl), :, :] = torch.einsum("...lmac,...mqcb->...lqab", P2, V)
         if s + 1 < P_:
             V = shift_(V, mesh, axis)
     # ring GEMM 2: K_bar = W^T A1, rows k local, all columns
@@ -397,7 +405,7 @@ def _bwd_unwhiten(L, f_bar, v, B, mesh, axis):
     Aq = A1
     for s in range(P_):
         q = (me - s) % P_
-        Wq = W[..., _js(q, P_, nbl), :, :, :]
+        Wq = W[..., _cols(q, P_, nbl), :, :, :]
         Kb = Kb + torch.einsum("...qlca,...qjcb->...ljab", Wq, Aq)
         if s + 1 < P_:
             Aq = shift_(Aq, mesh, axis)

@@ -47,6 +47,8 @@ import collections
 import torch
 import torch.distributed as dist
 
+from ..utils import graphs
+
 __all__ = ["copy", "psum", "all_gather", "ppermute", "broadcast", "copy_module", "allreduce_",
            "gather_", "broadcast_", "shift_", "all_ok", "BYTES", "CALLS"]
 
@@ -58,6 +60,20 @@ def _count(op: str, axis: str, t: torch.Tensor) -> None:
     key = (op, axis, str(t.dtype).removeprefix("torch."))
     BYTES[key] += t.numel() * t.element_size()
     CALLS[key] += 1
+
+
+def _group(mesh, axis: str):
+    """The axis's process group (None on an axis of size 1). A collective
+    over more than one process is refused while a CUDA graph is captured
+    (`utils/graphs.py`): capturing one is untried, so such a call runs
+    inside `graphs.eager()`."""
+    group = mesh.groups[axis]
+    if group is not None and graphs.capturing():
+        raise RuntimeError(
+            f"a collective over axis {axis!r} of {mesh.shape[axis]} processes cannot be captured "
+            "into a CUDA graph yet; run this call inside "
+            "`gaussianprocesses_jl_tpu_torch.utils.graphs.eager()`")
+    return group
 
 
 def _global(group, i: int) -> int:
@@ -73,7 +89,7 @@ def _global(group, i: int) -> int:
 
 def allreduce_(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The sum of x over the axis (a new tensor; x itself on a size-1 axis)."""
-    group = mesh.groups[axis]
+    group = _group(mesh, axis)
     if group is None:
         return x
     out = x.detach().clone().contiguous()
@@ -85,7 +101,7 @@ def allreduce_(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 def gather_(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     """x from every process of the axis, concatenated along `dim` in axis
     order."""
-    group = mesh.groups[axis]
+    group = _group(mesh, axis)
     if group is None:
         return x
     x = x.detach().contiguous()
@@ -99,7 +115,7 @@ def gather_(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
 def broadcast_(x: torch.Tensor, mesh, axis: str, owner: int) -> torch.Tensor:
     """The owner's x on every process of the axis (x: a tensor of the owner's
     shape everywhere; read only on the owner)."""
-    group = mesh.groups[axis]
+    group = _group(mesh, axis)
     if group is None:
         return x
     out = x.detach().clone().contiguous()
@@ -111,7 +127,7 @@ def broadcast_(x: torch.Tensor, mesh, axis: str, owner: int) -> torch.Tensor:
 def shift_(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
     """The ring shift: this process's x goes to coordinate (me + shift) mod
     P, and the result is the x of (me - shift) mod P."""
-    group = mesh.groups[axis]
+    group = _group(mesh, axis)
     P = mesh.shape[axis]
     if group is None or shift % P == 0:
         return x
@@ -128,7 +144,7 @@ def shift_(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor:
 
 def all_ok(ok: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """The AND of a bool tensor over the axis."""
-    group = mesh.groups[axis]
+    group = _group(mesh, axis)
     if group is None:
         return ok
     bad = (~ok).to(torch.int32).contiguous()

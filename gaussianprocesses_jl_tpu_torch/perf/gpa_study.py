@@ -18,14 +18,18 @@ outer iterations, of which the first 100 are dropped (no step-size
 adaptation, as in the JAX bench). One untimed outer iteration first builds
 the kernels and warms the allocator.
 
-It prints, and gives as one JSON object on its last line:
-  * the run: wall time, ESS min and median (multi-chain, FFT), ESS/s min
-    and median, rank-normalized R-hat max and `valid` (R-hat < 1.01), the
-    accept rates of both blocks;
+It prints, and gives as one JSON object on its last line, each twice: with
+the sampler's CUDA graphs (`utils/graphs.py`, the default) and eager
+(inside `graphs.eager()`, every operator dispatched from Python), in one
+process:
   * one outer iteration at 128 chains and at 1: its launches of each gram
     kernel, its host enqueue (the time for the call to return, the card
     not waited for), its CUDA-event time, and at 128 chains its device-busy
-    time with the device time by kernel and by operator (torch.profiler).
+    time with the device time by kernel and by operator (torch.profiler);
+  * the run: wall time, ESS min and median (multi-chain, FFT), ESS/s min
+    and median, rank-normalized R-hat max and `valid` (R-hat < 1.01), the
+    accept rates of both blocks, and whether its draws equal the other
+    run's bit for bit.
 """
 from __future__ import annotations
 
@@ -44,7 +48,8 @@ from gaussianprocesses_jl_tpu_torch.inference.diagnostics import (
 )
 from gaussianprocesses_jl_tpu_torch.inference.split import split_hmc
 from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
-from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
+from gaussianprocesses_jl_tpu_torch.perf.gram_study import eagerly
+from gaussianprocesses_jl_tpu_torch.utils.profiling import card_line, device_profile
 from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
 
 __all__ = ["config2_model", "chain_starts", "outer_iterations", "run", "one_iteration",
@@ -86,16 +91,22 @@ def outer_iterations(target, a, b, generator, n_iter):
                      eps_a=EPS_A, eps_b=EPS_B, Lmin=LMIN, Lmax=LMAX)
 
 
-def run(device, n_iter=N_ITER, warmup=WARMUP, chains=CHAINS) -> dict:
-    """The timed run of `chains` chains and its diagnostics."""
+def run(device, n_iter=N_ITER, warmup=WARMUP, chains=CHAINS, eager=False,
+        keep_draws=False) -> dict:
+    """The timed run of `chains` chains and its diagnostics (with
+    `keep_draws`, the draws too, under "samples"); `eager` runs it inside
+    `graphs.eager()`."""
+    sweep = eagerly(outer_iterations) if eager else outer_iterations
     m = config2_model(device)
     g = torch.Generator(device=device).manual_seed(11)
     *target, a, b = chain_starts(m, chains, g)
     sync = torch.cuda.synchronize if m.x.is_cuda else (lambda: None)
-    outer_iterations(target, a, b, g, 1)  # kernels built, allocator warm
+    # kernels built, graphs captured, allocator warm: from a generator of
+    # its own, so the timed run's draws do not depend on `eager`
+    sweep(target, a, b, torch.Generator(device=device).manual_seed(0), 1)
     sync()
     t0 = time.perf_counter()
-    res = outer_iterations(target, a, b, g, n_iter)
+    res = sweep(target, a, b, g, n_iter)
     sync()
     wall = time.perf_counter() - t0
     post = res.samples[:, warmup * A_ITERS:]
@@ -112,25 +123,30 @@ def run(device, n_iter=N_ITER, warmup=WARMUP, chains=CHAINS) -> dict:
         "ess_per_sec_min": float(ess.min()) / wall,
         "ess_per_sec_median": float(np.median(ess)) / wall,
         "rhat_max": float(np.nanmax(rhat)), "valid": bool(np.nanmax(rhat) < 1.01),
-        "draws_finite": finite,
+        "draws_finite": finite, "eager": eager,
     }
-    print(f"config #2, {chains} chains, {n_iter} outer iterations ({warmup} dropped), "
+    print(f"config #2{' eager' if eager else ''}, {chains} chains, {n_iter} outer iterations "
+          f"({warmup} dropped), "
           f"a_iters={A_ITERS}: wall {wall:.3f} s ({1e3 * wall / n_iter:.2f} ms an outer "
           f"iteration); ESS min {out['ess_min']:.1f}, median {out['ess_median']:.1f}; ESS/s "
           f"min {out['ess_per_sec_min']:.2f}, median {out['ess_per_sec_median']:.2f}; R-hat "
           f"max {out['rhat_max']:.4f} (valid {out['valid']}); accept a {out['accept_a']:.3f}, "
           f"b {out['accept_b']:.3f}; draws finite {finite}", flush=True)
+    if keep_draws:
+        out["samples"] = res.samples
     return out
 
 
-def one_iteration(device, chains, profile=True) -> dict:
+def one_iteration(device, chains, profile=True, eager=False) -> dict:
     """One outer iteration of `chains` chains: gram launches, host enqueue,
     CUDA-event time, and (with `profile`) device-busy ms with the device
-    time by kernel and by operator, each per iteration."""
+    time by kernel and by operator, each per iteration; `eager` runs it
+    inside `graphs.eager()`."""
     m = config2_model(device)
     g = torch.Generator(device=device).manual_seed(5)
     *target, a, b = chain_starts(m, chains, g)
     call = lambda: outer_iterations(target, a, b, g, 1)  # noqa: E731
+    call = eagerly(call) if eager else call
     call()
     torch.cuda.synchronize()
     for name in gram_op.LAUNCHES:
@@ -142,10 +158,11 @@ def one_iteration(device, chains, profile=True) -> dict:
     end.record()
     enqueue = 1e3 * (time.perf_counter() - t0)
     end.synchronize()
-    out = {"chains": chains, "gram_launches": gram_op.LAUNCHES["gram"],
+    out = {"chains": chains, "eager": eager, "gram_launches": gram_op.LAUNCHES["gram"],
            "gram_vjp_launches": gram_op.LAUNCHES["gram_vjp"], "enqueue_ms": enqueue,
            "event_ms": start.elapsed_time(end)}
-    line = (f"one outer iteration, {chains} chains: {out['gram_launches']} gram and "
+    line = (f"one outer iteration{' eager' if eager else ''}, {chains} chains: "
+            f"{out['gram_launches']} gram and "
             f"{out['gram_vjp_launches']} gram_vjp launches; host enqueue {enqueue:.2f} ms, "
             f"CUDA events {out['event_ms']:.2f} ms")
     if profile:
@@ -208,9 +225,15 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     print(f"package: {gp.__file__}", flush=True)
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"card: {card_line()}", flush=True)
     result = {"iteration": {"chains": one_iteration(dev, CHAINS),
-                            "one_chain": one_iteration(dev, 1, profile=False)},
-              "run": run(dev)}
+                            "one_chain": one_iteration(dev, 1, profile=False),
+                            "chains_eager": one_iteration(dev, CHAINS, eager=True),
+                            "one_chain_eager": one_iteration(dev, 1, profile=False, eager=True)},
+              "run": run(dev, keep_draws=True), "run_eager": run(dev, eager=True, keep_draws=True)}
+    same = torch.equal(result["run"].pop("samples"), result["run_eager"].pop("samples"))
+    result["run"]["draws_equal_eager"] = same
+    print(f"graphed and eager draws equal bit for bit: {same}", flush=True)
     print(json.dumps(result))
     return 0
 

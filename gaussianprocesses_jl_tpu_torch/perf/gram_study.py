@@ -39,6 +39,7 @@ import torch
 
 import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
+from gaussianprocesses_jl_tpu_torch.utils import graphs
 from gaussianprocesses_jl_tpu_torch.utils.profiling import device_ms_by_name
 
 __all__ = ["HBM_BYTES_PER_S", "F32_FLOPS", "F64_FLOPS", "gram_bound_ms", "gram_vjp_bound_ms",
@@ -101,6 +102,16 @@ def gram_vjp_bound_ms(n1, n2, d, itemsize, sym, need_dx, chains=1, x_per_chain=F
     peak = F32_FLOPS if itemsize == 4 else F64_FLOPS
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def eagerly(fn):
+    """fn with its CUDA graphs' work run eagerly (`utils/graphs.eager()`):
+    the other half of a graph-against-eager comparison."""
+    def call(*args, **kwargs):
+        with graphs.eager():
+            return fn(*args, **kwargs)
+
+    return call
 
 
 def time_ms(fn, reps=20, warmup=3) -> float:

@@ -27,8 +27,10 @@ median (multi-chain), ESS/s, R-hat max and `valid` (R-hat < 1.01), the
 acceptance and the adapted step sizes; then for one iteration (one call of
 the sampler over one iteration, its start evaluation included): the
 launches by kernel and shape, the host enqueue, the CUDA-event time and the
-device-busy time (torch.profiler). The flags cut the depths; the last line
-of the output is the numbers as one JSON object.
+device-busy time (torch.profiler), for `sharded_hmc` and `sharded_split_hmc`
+both with their CUDA graphs (`utils/graphs.py`, the default) and eager
+(inside `graphs.eager()`), in one process. The flags cut the depths; the last line of
+the output is the numbers as one JSON object.
 """
 from __future__ import annotations
 
@@ -52,9 +54,9 @@ from gaussianprocesses_jl_tpu_torch.parallel import (
     sharded_hmc,
     sharded_split_hmc,
 )
-from gaussianprocesses_jl_tpu_torch.perf.gram_study import by_shape
+from gaussianprocesses_jl_tpu_torch.perf.gram_study import by_shape, eagerly
 from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
-from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
+from gaussianprocesses_jl_tpu_torch.utils.profiling import card_line, device_profile
 
 __all__ = ["config5_data", "config5_model", "config5_gpe", "chain_starts", "run_hmc",
            "run_split", "run_ess", "one_iteration", "main"]
@@ -222,9 +224,14 @@ def main(argv=None) -> int:
     C = args.chains
     # profiles from the smallest to the largest: a profile that followed a
     # large one in the same process has seen no kernel
+    print(f"card: {card_line()}", flush=True)
     result = {"chains": C, "iteration": {
         "ess": one_iteration(dev, "sharded_ess", _ess_call(dev, C, 1, 0)),
+        "hmc_eager": one_iteration(dev, "sharded_hmc eager",
+                                   eagerly(_hmc_call(dev, C, 1, 0, 0))),
         "hmc": one_iteration(dev, "sharded_hmc", _hmc_call(dev, C, 1, 0, 0)),
+        "split_eager": one_iteration(dev, "sharded_split_hmc eager",
+                                     eagerly(_split_call(dev, C, 1, 0, 0))),
         "split": one_iteration(dev, "sharded_split_hmc", _split_call(dev, C, 1, 0, 0))}}
     for name, run in (("hmc", lambda: run_hmc(dev, C, args.hmc_iters, args.hmc_warmup)),
                       ("split", lambda: run_split(dev, C, args.split_iters, args.split_warmup)),

@@ -61,30 +61,37 @@ def trace(log_dir: str):
 
 
 def device_ms_by_name(fn: Callable, args: Sequence = (), reps: int = 5,
-                      warmup: int = 0) -> tuple:
+                      warmup: int = 0, sessions: int = 3) -> tuple:
     """The card's time per call of `fn(*args)`, from `torch.profiler` over
     `reps` calls after `warmup` unprofiled ones: ({kernel: (ms, launches)},
     {operator: (self device ms, calls)}), each per call, for every name
     with device time. A kernel's time is its own on the card, without the
     host's gaps between launches; an operator's self device time is its
     kernels' time counted again, so device-busy time sums the kernels
-    alone. Both are empty where nothing ran on a card."""
+    alone. Both are empty where nothing ran on a card.
+
+    With a card, a session that saw no kernel at all is run again, up to
+    `sessions` in all: now and then a session loses every kernel record
+    (`perf/profiler_check.py` counts how often)."""
     from torch.autograd import DeviceType
 
     for _ in range(warmup):
         fn(*args)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    with _profiler() as prof:
-        for _ in range(reps):
-            fn(*args)
+    for _ in range(sessions):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    kernels, ops = {}, {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0:
-            into = kernels if e.device_type == DeviceType.CUDA else ops
-            into[e.key] = (e.self_device_time_total / 1e3 / reps, e.count / reps)
+        with _profiler() as prof:
+            for _ in range(reps):
+                fn(*args)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        kernels, ops = {}, {}
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                into = kernels if e.device_type == DeviceType.CUDA else ops
+                into[e.key] = (e.self_device_time_total / 1e3 / reps, e.count / reps)
+        if kernels or not torch.cuda.is_available():
+            break
     return kernels, ops
 
 

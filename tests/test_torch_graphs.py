@@ -1,0 +1,384 @@
+"""The graph layer (`utils/graphs.py`) on the CPU, f64.
+
+A CUDA graph cannot be captured here, so three things are checked:
+
+* the CPU path is the eager function: the headline's and the GPA's value
+  and gradient, one HMC transition and one split transition give, bit for
+  bit, what they give inside `graphs.eager()` and what the plain autograd
+  of the target gives;
+* every capture region reads nothing back to the host (`host_reads.py`:
+  host reads and copies of host data made to raise), here on meshes of
+  size 1 and in tests/torch_parallel_ranks.py at P = 2 and 4;
+* the layer's own logic, with the capture emulated: a replay that re-runs
+  the captured function on the static input buffers, as a CUDA graph
+  re-runs its kernels on them. Its keys (a new shape or structure captures
+  anew, new values replay), its copies in and out, its launch counts, the
+  graphs' lifetime (with their model, the last `PER_OWNER` an owner) and
+  the pool's, and the refusal of a collective inside a capture.
+"""
+import dataclasses
+import gc
+import types
+import weakref
+
+import numpy as np
+import pytest
+import torch
+
+import gaussianprocesses_jl_tpu_torch as gt
+from gaussianprocesses_jl_tpu_torch.inference.hmc import hmc
+from gaussianprocesses_jl_tpu_torch.inference.split import split_hmc
+from gaussianprocesses_jl_tpu_torch.models.gpe import gpe_target
+from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
+from gaussianprocesses_jl_tpu_torch.parallel import collectives
+from gaussianprocesses_jl_tpu_torch.parallel.chains import sharded_hmc, sharded_split_hmc
+from gaussianprocesses_jl_tpu_torch.parallel.dense import (AmbientFullCovariance,
+                                                           DistributedFullCovariance)
+from gaussianprocesses_jl_tpu_torch.parallel.mesh import make_mesh, make_pod_mesh
+from gaussianprocesses_jl_tpu_torch.perf.gram_study import eagerly
+from gaussianprocesses_jl_tpu_torch.utils import graphs
+from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
+
+from host_reads import checked_run
+
+
+def _gpe(n=30, seed=0, kernel=None):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 3)
+    y = np.sin(X[:, 0]) + 0.1 * rng.randn(n)
+    kern = gt.SE(0.1, -0.2) + gt.Matern(1.5, np.zeros(3), 0.0) if kernel is None else kernel
+    return gt.GPE(X, y, gt.MeanConst(beta=0.3), kern, lognoise=-1.0, device="cpu")
+
+
+def _gpa(n=10, seed=5):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 2)
+    y = (np.sin(X[:, 0]) + 0.3 * rng.randn(n) > 0).astype(float)
+    m = gt.GPA(X, y, gt.MeanZero(), gt.SE(0.0, 0.0), gt.BernLik(), device="cpu")
+    m.set_priors(kern=[Normal(0.0, 1.0)] * 2)
+    return m
+
+
+def _autograd(m, target):
+    vec = m.params.flat_params().detach().requires_grad_()
+    t = target(m.params.with_flat_params(vec), m.x, m.y, m.covstrat)[0]
+    (g,) = torch.autograd.grad(t, vec)
+    return t.detach(), g
+
+
+def _kept(owner) -> int:
+    """How many graphs the layer keeps for `owner`."""
+    return len(graphs._GRAPHS.get(owner, ()))
+
+
+def _equal(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def _hmc_run(eager):
+    lp, x0, _, _ = _gpa().make_logprob()
+    starts = x0 + 0.1 * torch.as_tensor(np.random.RandomState(1).randn(3, x0.numel()))
+    gen = torch.Generator().manual_seed(4)
+    res = (eagerly(hmc) if eager else hmc)(lp, starts, gen, n_iter=1, eps=0.05, Lmin=2, Lmax=4)
+    return res.samples, res.final_target, res.accept_rate
+
+
+def _split_run(eager, n_iter=1, m=None):
+    precompute, la, lb, a0, b0 = (m or _gpa()).make_split_logprob()
+    rng = np.random.RandomState(2)
+    a = a0 + 0.1 * torch.as_tensor(rng.randn(3, a0.numel()))
+    b = b0 + 0.1 * torch.as_tensor(rng.randn(3, b0.numel()))
+    gen = torch.Generator().manual_seed(6)
+    res = (eagerly(split_hmc) if eager else split_hmc)(
+        precompute, la, lb, a, b, gen, n_iter=n_iter, a_iters=2, eps_a=0.2, eps_b=0.1, Lmin=2,
+        Lmax=4)
+    return res.samples, res.final_target, res.accept_rate_a, res.accept_rate_b
+
+
+@pytest.mark.parametrize("case", ["headline", "gpa", "hmc", "split"])
+def test_cpu_path_is_the_eager_function(case):
+    """On CPU tensors the layer calls the function itself: the same bits as
+    inside `graphs.eager()`, and for the targets as the plain autograd of
+    the target."""
+    if case == "headline":
+        m = _gpe()
+        _equal(m.target_and_dtarget(), eagerly(m.target_and_dtarget)())
+        _equal(m.target_and_dtarget(), _autograd(m, gpe_target))
+    elif case == "gpa":
+        m = _gpa()
+        m.set_params(np.linspace(-0.5, 0.5, m.num_params()))
+        _equal(m.target_and_dtarget(), eagerly(m.target_and_dtarget)())
+        _equal(m.target_and_dtarget(), _autograd(m, gt.models.gpa.gpa_target))
+    elif case == "hmc":
+        _equal(_hmc_run(False), _hmc_run(True))
+    else:
+        _equal(_split_run(False), _split_run(True))
+
+
+@pytest.mark.parametrize("case", ["headline", "headline_n300", "fix_and_mask", "gpa",
+                                  "objective", "hmc", "split", "sharded_hmc",
+                                  "sharded_split_hmc", "distributed", "ambient_hmc"])
+def test_capture_regions_read_nothing_from_the_host(case, monkeypatch):
+    """Each region the layer captures runs with host reads refused; the
+    regions run (a count) and give the unchecked run's bits. At n = 300 the
+    backward's triangular inverse pads to two blocks."""
+    regions = []
+
+    def checked(owner, fn, *args, static=()):
+        regions.append(static)
+        return checked_run(owner, fn, *args)
+
+    def run():
+        if case == "headline_n300":
+            return _gpe(n=300).target_and_dtarget()
+        if case == "distributed":
+            m = _gpe(n=24)
+            m.covstrat = DistributedFullCovariance(make_mesh({"j": 1}, device="cpu"), "j", 8)
+            return m.target_and_dtarget()
+        if case == "ambient_hmc":
+            m = _gpa(n=16)
+            pod = make_pod_mesh({"j": 1}, device="cpu")
+            m.covstrat = AmbientFullCovariance(pod, B=8)
+            lp, x0, _, _ = m.make_logprob()
+            th = x0 + 0.05 * torch.as_tensor(np.random.RandomState(3).randn(2, x0.numel()))
+            r = sharded_hmc(lp, th, 7, pod, n_iter=2, eps0=0.05, Lmin=2, Lmax=3)
+            return r.samples, r.final_target
+        if case in ("headline", "fix_and_mask"):
+            kern = None if case == "headline" else (
+                gt.fix(gt.SE(0.2, 0.1), "ll")
+                + gt.Masked(gt.RQ(0.0, 0.1, 0.2), (0, 2)))
+            return _gpe(kernel=kern).target_and_dtarget()
+        if case == "gpa":
+            return _gpa().target_and_dtarget()
+        if case == "objective":
+            vg, x0, _, _ = _gpe().make_objective(noise=False)
+            return vg(x0 + 0.1)
+        if case == "hmc":
+            return _hmc_run(False)
+        if case == "split":
+            return _split_run(False)
+        m = student_gpa()
+        mesh = make_mesh(device="cpu")
+        if case == "sharded_hmc":
+            lp, x0, _, _ = m.make_logprob()
+            th = x0 + 0.05 * torch.as_tensor(np.random.RandomState(3).randn(2, x0.numel()))
+            r = sharded_hmc(lp, th, 7, mesh, n_iter=2, n_warmup=2, eps0=0.05, Lmin=2, Lmax=3)
+            return r.samples, r.final_target, r.eps_final
+        precompute, la, lb, a0, b0 = m.make_split_logprob()
+        x0 = torch.cat([a0, b0])
+        th = x0 + 0.05 * torch.as_tensor(np.random.RandomState(3).randn(2, x0.numel()))
+        r = sharded_split_hmc(precompute, la, lb, th, 7, mesh, a0.numel(), n_iter=1, n_warmup=1,
+                              a_iters=2, Lmin=2, Lmax=3)
+        return r.samples, r.final_target, r.eps_a_final, r.eps_b_final
+
+    plain = run()
+    monkeypatch.setattr(graphs, "run", checked)
+    _equal(run(), plain)
+    assert regions
+
+
+def student_gpa(n=8):
+    """Configuration #5's Student-t GPA, cut to n points."""
+    rng = np.random.RandomState(1)
+    x = np.sort(2 * np.pi * rng.rand(n))
+    y = np.sin(x) + 0.15 * rng.randn(n)
+    m = gt.GPA(x, y, gt.MeanZero(), gt.SE(0.0, 0.0), gt.StuTLik(lsigma=-1.0, nu=3),
+               device="cpu")
+    m.set_priors(kern=[Normal(0.0, 2.0)] * 2, lik=[Normal(-1.0, 1.0)])
+    return m
+
+
+@pytest.fixture
+def emulated(monkeypatch):
+    """The layer's graph path on CPU tensors, its capture emulated: the
+    warm-up and the captured call run as on the card, and a replay re-runs
+    the function on the static input buffers, writing its outputs into the
+    captured ones."""
+
+    def capture(fn, args, device, pool):
+        fn(*args)
+        warm = graphs._snapshot()
+        out = fn(*args)
+        launches = graphs._delta(graphs._snapshot(), warm)
+        held = []
+        graphs._flatten(out, held)
+
+        def replay():
+            before = graphs._snapshot()
+            new = []
+            graphs._flatten(fn(*args), new)
+            graphs._restore(before)
+            for h, t in zip(held, new):
+                h.copy_(t)
+
+        return replay, out, launches
+
+    monkeypatch.setattr(graphs, "_capture", capture)
+    monkeypatch.setattr(graphs, "_device", lambda leaves: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 0))
+    graphs.clear()
+    yield
+    graphs.clear()
+
+
+def test_emulated_graph_keys_and_copies(emulated):
+    """New values replay the kept graph and give the eager bits; a new shape
+    (`push`) or structure (`set_priors`) captures a graph of its own; `fit`
+    with data of the same shape replays with the new data; outputs are
+    copies the next replay leaves alone."""
+    m = _gpe()
+    eager = eagerly(m.target_and_dtarget)
+    first = m.target_and_dtarget()
+    _equal(first, eager())
+    assert _kept(m) == 1
+    m.set_params(m.get_params() + 0.05)
+    again = m.target_and_dtarget()
+    _equal(again, eager())
+    assert not torch.equal(again[1], first[1])
+    assert _kept(m) == 1
+    rng = np.random.RandomState(9)
+    m.fit(rng.randn(30, 3), rng.randn(30))
+    _equal(m.target_and_dtarget(), eager())
+    assert _kept(m) == 1
+    m.push(rng.randn(4, 3), rng.randn(4))
+    _equal(m.target_and_dtarget(), eager())
+    assert _kept(m) == 2
+    m.set_priors(noise=[Normal(-1.0, 1.0)])
+    _equal(m.target_and_dtarget(), eager())
+    assert _kept(m) == 3
+    kept = m.target_and_dtarget()
+    snapshot = [t.clone() for t in kept]
+    m.set_params(m.get_params() - 0.1)
+    m.target_and_dtarget()
+    _equal(kept, snapshot)
+
+
+def test_emulated_samplers_keep_their_graphs(emulated):
+    """The samplers through emulated graphs give the eager bits, and keep
+    their graphs for their log targets: a second run of the same target
+    captures nothing."""
+    _equal(_hmc_run(False), _hmc_run(True))
+    m = _gpa()
+    _equal(_split_run(False, 2, m), _split_run(True, 2, m))
+    target = m.make_split_logprob()
+    a, b = target[3][None].repeat(3, 1), target[4][None].repeat(3, 1)
+    for _ in range(2):
+        split_hmc(*target[:3], a, b, torch.Generator().manual_seed(0), n_iter=1, a_iters=2,
+                  Lmin=2, Lmax=3)
+        assert [_kept(f) for f in target[:3]] == [1, 2, 2]
+
+
+def test_emulated_replays_count_one_evaluation_of_launches(emulated):
+    """A function that counts a launch as the kernels' wrappers do: the
+    first call (warm-up, capture, replay) and every later replay count one
+    launch each; eager calls count theirs."""
+
+    def counted(x):
+        gram_op.LAUNCHES["gram"] += 1
+        gram_op.LAUNCH_SHAPES["gram", 3, 3, False] += 1
+        return x * 2.0
+
+    x = torch.ones(3)
+    base = gram_op.LAUNCHES["gram"], gram_op.LAUNCH_SHAPES["gram", 3, 3, False]
+    for k in range(1, 4):
+        assert torch.equal(graphs.run(counted, counted, x), 2.0 * x)
+        assert (gram_op.LAUNCHES["gram"], gram_op.LAUNCH_SHAPES["gram", 3, 3, False]) == \
+            (base[0] + k, base[1] + k)
+    eagerly(graphs.run)(counted, counted, x)
+    assert gram_op.LAUNCHES["gram"] == base[0] + 4
+
+
+def test_emulated_graph_keys_a_module_with_an_unhashable_static_field(emulated):
+    """A distributed strategy's static mesh (a dataclass of dicts) keys its
+    graph by identity: the same mesh replays, another captures anew."""
+    m = _gpe(n=24)
+    eager = eagerly(m.target_and_dtarget)
+    mesh = make_mesh({"j": 1}, device="cpu")
+    m.covstrat = DistributedFullCovariance(mesh, "j", 8)
+    _equal(m.target_and_dtarget(), eager())
+    m.target_and_dtarget()
+    assert _kept(m) == 1
+    m.covstrat = DistributedFullCovariance(make_mesh({"j": 1}, device="cpu"), "j", 8)
+    _equal(m.target_and_dtarget(), eager())
+    assert _kept(m) == 2
+
+
+def test_the_layer_refuses_mixed_devices_and_unknown_arguments():
+    with pytest.raises(TypeError, match="cannot take"):
+        graphs.run(_gpe, lambda x: x, object())
+    on = lambda d: types.SimpleNamespace(device=torch.device(d))  # noqa: E731
+    assert graphs._device([on("cpu"), on("cpu")]) is None
+    assert graphs._device([on("cuda:0")]) == torch.device("cuda:0")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        graphs._device([on("cpu"), on("cuda:0")])
+
+
+def test_emulated_graphs_go_with_their_model_and_the_pool_with_its_last_graph(emulated):
+    """A model's graphs are kept for the model: dropping it drops them, its
+    objective's and its target's, and the last graph of a pool takes the
+    pool with it, so the next capture starts a new one."""
+    m = _gpe()
+    m.target_and_dtarget()
+    vg, x0, _, _ = m.make_objective(noise=False)
+    vg(x0 + 0.1)
+    assert _kept(m) == 2
+    pool = graphs._POOLS[None]
+    assert pool.live == 2
+    other = _gpe(seed=1)
+    other.target_and_dtarget()
+    assert pool.live == 3
+    gone = weakref.ref(m)
+    del m, vg
+    gc.collect()
+    assert gone() is None and pool.live == 1 and graphs._POOLS[None] is pool
+    del other
+    gc.collect()
+    assert pool.live == 0 and None not in graphs._POOLS
+    again = _gpe()
+    again.target_and_dtarget()
+    assert graphs._POOLS[None] is not pool and graphs._POOLS[None].live == 1
+
+
+def test_emulated_owner_keeps_its_last_graphs(emulated):
+    """An owner keeps its `PER_OWNER` most recently replayed graphs: a new
+    shape past them drops the least recently replayed, which captures anew
+    when it comes back; the pool counts the graphs kept."""
+    calls = []
+
+    def double(x):
+        calls.append(x.shape[0])
+        return 2.0 * x
+
+    n = graphs.PER_OWNER
+    for k in range(1, n + 1):
+        graphs.run(double, double, torch.ones(k))
+    graphs.run(double, double, torch.ones(1))  # 1 is now the most recent
+    calls.clear()
+    graphs.run(double, double, torch.ones(n + 1))  # drops 2
+    assert _kept(double) == n and graphs._POOLS[None].live == n
+    graphs.run(double, double, torch.ones(1))
+    assert calls == [n + 1] * 3 + [1]  # warm-up, capture, replay; a replay
+    calls.clear()
+    graphs.run(double, double, torch.ones(2))
+    assert calls == [2] * 3
+
+
+def test_a_collective_is_refused_inside_a_capture(emulated):
+    """A distributed strategy over an axis of two processes: outside a
+    capture its collectives run (here up to the missing process group), and
+    a capture, warm-up included, refuses the first one with the way round
+    it, `graphs.eager()`."""
+    mesh = make_mesh({"j": 1}, device="cpu")
+    two = dataclasses.replace(mesh, shape={"j": 2}, groups={"j": object()})
+    m = _gpe(n=32)
+    m.covstrat = DistributedFullCovariance(two, "j", 8)
+    with pytest.raises(RuntimeError, match=r"graphs\.eager\(\)"):
+        m.target_and_dtarget()
+    assert None not in graphs._POOLS  # the failed capture's pool is retired
+    x = torch.ones(2)
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        graphs.run(x, lambda t: collectives.allreduce_(t, two, "j"), x)
+    with pytest.raises(Exception) as eager:  # no process group: gloo is not set up here
+        eagerly(graphs.run)(x, lambda t: collectives.allreduce_(t, two, "j"), x)
+    assert "cannot be captured" not in str(eager.value)

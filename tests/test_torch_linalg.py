@@ -104,6 +104,33 @@ def test_dense_quad_logdet_value_and_vjp():
     np.testing.assert_allclose(gr.numpy(), np.asarray(grj), rtol=1e-10, atol=1e-12)
 
 
+@pytest.mark.parametrize("n", [300, 1100])
+def test_explicit_kinv_route_against_jax(n):
+    """The backward's route to K^-1 and alpha (`explicit_kinv`), at n where
+    the recursion pads to 2 and 5 blocks of 256 and, at 1100, the product
+    takes 2 blocks of 1024: against the JAX package's tri_inv_lower and
+    tri_syrk_lower, and `dense_quad_logdet`'s VJP against JAX's, at the
+    tolerances of the tests above."""
+    K = _spd(n, 8)
+    r = np.random.RandomState(9).randn(n)
+    L = np.linalg.cholesky(K)
+    w = np.linalg.solve(L, r)
+    Kinv, alpha = tl.explicit_kinv(_t(L), _t(w))
+    Linv_j = jl.tri_inv_lower(jnp.asarray(L))
+    np.testing.assert_allclose(Kinv.numpy(), np.asarray(jl.tri_syrk_lower(Linv_j)),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(alpha.numpy(), np.asarray(Linv_j.T @ jnp.asarray(w)),
+                               rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(Kinv.numpy(), np.linalg.inv(K), rtol=1e-9, atol=1e-12)
+    Kt, rt = _t(K).requires_grad_(), _t(r).requires_grad_()
+    quad, logdet, _ = tl.dense_quad_logdet(Kt, rt)
+    gK, gr = torch.autograd.grad(0.7 * quad - 1.3 * logdet, (Kt, rt))
+    _, vjp = jax.vjp(lambda A, b: jl.dense_quad_logdet(A, b), jnp.asarray(K), jnp.asarray(r))
+    gKj, grj = vjp((jnp.asarray(0.7), jnp.asarray(-1.3), np.zeros((), dtype=jax.dtypes.float0)))
+    np.testing.assert_allclose(gK.numpy(), np.asarray(gKj), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(gr.numpy(), np.asarray(grj), rtol=1e-10, atol=1e-12)
+
+
 def test_dense_quad_logdet_flags_failure_without_raising():
     bad = _spd(20)
     bad[2, 2] = -1.0

@@ -233,6 +233,19 @@ COMM_P4 = {
 }
 
 
+@pytest.mark.parametrize("case", R.HOST_READ_CASES)
+def test_capture_regions_read_nothing_from_the_host_over_processes(ranks, case):
+    """The regions the graph layer captures, at P = 4 and 2: no host read
+    and no copy of host data on any rank, and the same bits as the
+    unchecked run."""
+    for got in ranks:
+        assert str(got[f"{case}_refused"]) == ""
+        plain = sorted(k for k in got if k.startswith(f"{case}_plain_"))
+        assert plain
+        for key in plain:
+            np.testing.assert_array_equal(got[key.replace("_plain_", "_checked_")], got[key])
+
+
 @pytest.mark.parametrize("path", comm_model.PATHS)
 def test_collective_bytes_over_four_processes(ranks, path):
     """The bytes and calls each rank handed to torch.distributed on one

@@ -18,6 +18,11 @@ runs, f64:
     sharded_hmc over AmbientFullCovariance;
   * the bytes and calls of the collectives on each path of
     `perf/comm_model.py` (`measure_paths`, its own meshes of size 4);
+  * the regions the CUDA graph layer would capture (`utils/graphs.py`),
+    run with host reads refused (tests/host_reads.py): the dense GPE and
+    GPA targets at P = 4 ('j' of make_mesh) and P = 2 ('j' of the pod
+    mesh), and sharded_hmc over AmbientFullCovariance at P = 2, each
+    beside its unchecked run;
 and saves what this rank computed to OUT_DIR/rank{RANK}.npz.
 """
 import os
@@ -39,6 +44,8 @@ from gaussianprocesses_jl_tpu_torch.parallel import (  # noqa: E402
 from gaussianprocesses_jl_tpu_torch.parallel.collectives import gather_, psum  # noqa: E402
 from gaussianprocesses_jl_tpu_torch.parallel.dense import AmbientFullCovariance  # noqa: E402
 from gaussianprocesses_jl_tpu_torch.perf import comm_model  # noqa: E402
+from gaussianprocesses_jl_tpu_torch.utils import graphs  # noqa: E402
+from host_reads import checked_run  # noqa: E402
 
 N_DENSE, N_GPA, N_RING, N_FITC, N_VI, N_HMC = 64, 64, 64, 1600, 48, 32
 HMC_KW = dict(n_iter=6, n_warmup=4, eps0=0.05, Lmin=2, Lmax=4)
@@ -192,6 +199,43 @@ def collective_grads(m, axis):
             for k, (loss, wrt) in losses.items()}
 
 
+HOST_READ_CASES = ("dense_P4", "gpa_P4", "dense_P2", "ambient_hmc_P2")
+
+
+def host_read_case(case, mj, pod):
+    """The numbers of one case, every graph region run as the layer calls it."""
+    if case == "ambient_hmc_P2":
+        logprob, theta0 = hmc_problem(AmbientFullCovariance(pod, B=4))
+        h = chains.sharded_hmc(logprob, theta0, HMC_SEED, pod, n_iter=2, n_warmup=1, eps0=0.05,
+                               Lmin=2, Lmax=3)
+        return [h.samples, h.final_target]
+    mesh, B = (mj, 4) if case.endswith("P4") else (pod, 4)
+    cs = gp.DistributedFullCovariance(mesh, "j", B)
+    m = dense_model(cs) if case.startswith("dense") else gpa_model(cs)
+    return list(m.target_and_dtarget())
+
+
+def host_read_checks(mj, pod) -> dict:
+    """Each case unchecked, then with `graphs.run` replaced by the check:
+    {case_plain_k, case_checked_k: arrays, case_refused: the check's
+    message, or ''}. Every rank reads the host at the same point, if any,
+    so all raise together and no collective is left waiting."""
+    out = {}
+    for case in HOST_READ_CASES:
+        for k, t in enumerate(host_read_case(case, mj, pod)):
+            out[f"{case}_plain_{k}"] = t.numpy()
+        run, graphs.run = graphs.run, checked_run
+        try:
+            for k, t in enumerate(host_read_case(case, mj, pod)):
+                out[f"{case}_checked_{k}"] = t.numpy()
+            out[f"{case}_refused"] = np.asarray("")
+        except AssertionError as e:
+            out[f"{case}_refused"] = np.asarray(str(e))
+        finally:
+            graphs.run = run
+    return out
+
+
 def main(rank, world, init_file, out_dir):
     torch.set_num_threads(1)  # the ranks share the machine's cores
     mesh.initialize_distributed(f"file://{init_file}", world, rank)
@@ -236,6 +280,7 @@ def main(rank, world, init_file, out_dir):
         out["pod"] = np.asarray([pod.shape["chains"], pod.shape["j"], pod.coords["chains"],
                                  pod.coords["j"]])
         out["comm"] = np.asarray(json.dumps(comm_model.measure_paths(world)))
+        out.update(host_read_checks(mj, pod))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

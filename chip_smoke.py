@@ -138,13 +138,20 @@ Phases, each of which exits non-zero on the first failure:
      launches each way; events, enqueue and busy ms), one HMC iteration at
      configuration #5's 1024 chains (15 + 15 launches) and one split outer
      iteration at configuration #2's 128 chains (17 + 16), each equal bit
-     for bit or within the f32 bars, no accept decision changed; a dropped
+     for bit or within the f32 bars, no accept decision changed; then one
+     `sharded_ess` and one `ess_iteration` at 1024 chains (the same
+     proposals each way), one VI Adam step of configuration #3, one padded
+     elastic append at n = 4032, `logp_LOO` + `dlogp_LOO` at n = 3000 and
+     one FITC step at N = 100 000 (`phase_graph_pairs`: events, enqueue and
+     busy ms each way, equal bits or within `GRAPH_BARS`); a dropped
      model's graph gives its memory back.
-On the card the targets and the samplers run through their CUDA graphs
+On the card the targets, the samplers, VI's steps, cross-validation, the
+predictives and the elastic append run through their CUDA graphs
 (`utils/graphs.py`) in every phase unless it asks for eager: phases 4-8,
-13-16, 24 and 27-28 among them. Every gram and VJP launch of phases 27-31
-is kept (`captured_launches`; under a graph, its capture's warm-up) and
-replayed against the plain versions in f64.
+13-16, 20-21, 24-25 and 27-30 among them. Every gram and VJP launch of
+phases 27-31 and of phase 32's new pairs is kept (`captured_launches`;
+under a graph, its capture's warm-up) and replayed against the plain
+versions in f64.
 Phase 8 also times the batched kernels (C = 128, n = 200; configuration
 #5's C = 1024, n = 60), configuration #4's cross gram (512 x 100 000,
 perf/fitc_study.py), the elastic append's grams and the distributed
@@ -175,8 +182,9 @@ import torch
 import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.examples import (classification, mauna_loa, poisson_regression,
                                                      regression, robust_regression)
-from gaussianprocesses_jl_tpu_torch.inference import hmc
+from gaussianprocesses_jl_tpu_torch.inference import ess as ess_mod, hmc
 from gaussianprocesses_jl_tpu_torch.inference.hmc import batched_value_and_grad
+from gaussianprocesses_jl_tpu_torch.inference.vi import adam_init, adam_step, make_neg_elbo
 from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels as chol_op
 from gaussianprocesses_jl_tpu_torch.ops import cuda, gram as gram_op
 from gaussianprocesses_jl_tpu_torch.ops.distance import sqdist
@@ -1659,8 +1667,8 @@ def phase_elastic(dev) -> dict:
     in blocks of 64 on the card, f32 and f64, across the capacity crossings
     at 1024, 2048 and 3072: the maintained factor against a fresh f64 GPE
     on the CPU at n = 1024, 2048, 3072 and 4096 (`ELASTIC_F64`,
-    `ELASTIC_F32`); exactly 2 gram launches (K(X, x_new) at n x 64 and
-    K(x_new) at 64 x 64) and no VJP an in-bucket append, 1 (the refit) at a
+    `ELASTIC_F32`); exactly 2 gram launches (K(X, x_new) at capacity x 64
+    and K(x_new) at 64 x 64) and no VJP an in-bucket append, 1 (the refit) at a
     crossing; ms an append at n = 960 and 4032 beside one refit's at 1024
     and 4096 (f32)."""
     es = elastic_study
@@ -1914,7 +1922,8 @@ def phase_compositions(dev) -> tuple:
 # relative, gradient of max|g|), and for a sampler's states, targets and
 # gradients the GPA target's f32 bar of phase 13 (relative to each
 # output's largest magnitude); an accept decision must not change
-GRAPH_BARS = {"headline": HEADLINE_BAR, "sampler": GPA_TOL}
+GRAPH_BARS = {"headline": HEADLINE_BAR, "sampler": GPA_TOL, "vi": (VI_TRACE_TOL,),
+              "elastic": ELASTIC_F32, "fitc": FITC_TOL}
 
 
 def graph_gap(got, ref) -> float:
@@ -1923,6 +1932,131 @@ def graph_gap(got, ref) -> float:
         return 0.0
     got, ref = got.double(), ref.double()
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+def graph_pair(name, setup, bar, reps=10):
+    """One graph-against-eager pair of phase 32. `setup()` makes fresh state
+    and returns a zero-argument call whose result is a list of tensors; each
+    way runs a call of its own setup once (outputs compared, launches
+    counted from 0), then another setup's call is timed: CUDA-event ms,
+    host enqueue ms and device-busy ms (torch.profiler; None where it saw
+    no kernel). Equal bits, or the gap (`graph_gap`) of every output within
+    `bar`[0], and the same launches each way."""
+    row = {}
+    for label, way in (("graph", lambda f: f), ("eager", eagerly)):
+        out, n = launches(way(setup()))
+        call = way(setup())
+        busy, kernels, _ = device_profile(call, reps=3)
+        row[label] = {"out": out, "launches": n, "event_ms": time_ms(call, reps=reps, warmup=2),
+                      "enqueue_ms": enqueue_ms(call, reps=reps),
+                      "busy_ms": busy if kernels else None}
+    gaps = [graph_gap(a, b) for a, b in zip(row["graph"]["out"], row["eager"]["out"])]
+    summary = {"bits": max(gaps) == 0.0, "gap": max(gaps),
+               **{f"{k}_{label}": row[label][k] for label in row
+                  for k in ("launches", "event_ms", "enqueue_ms", "busy_ms")}}
+    print(f"  {name}, graph vs eager: "
+          f"{'equal bits' if summary['bits'] else f'gap {max(gaps):.3e}'}; " + ", ".join(
+              f"{label} {r['event_ms']:.4f} ms events, {r['enqueue_ms']:.4f} ms enqueue, "
+              f"{r['busy_ms']} ms busy, launches {r['launches']}"
+              for label, r in row.items()), flush=True)
+    if row["graph"]["launches"] != row["eager"]["launches"] or max(gaps) > bar[0]:
+        fail(f"phase 32: {name}: launches {row['graph']['launches']} against "
+             f"{row['eager']['launches']}, or gap {gaps} over {bar[0]}")
+    return summary, [row[label]["out"] for label in row]
+
+
+def phase_graph_pairs(dev) -> tuple:
+    """Phase 32's pairs for the later graphed paths, every launch of
+    the block kept by `captured_launches` and held against the plain
+    version: one `sharded_ess` iteration of configuration #5 (1024 chains;
+    the same proposal counts each way) and one `ess_iteration` timed; one
+    Adam step of configuration #3 (VI, n = 4096); one padded elastic append
+    at n = 4032, capacity 4096; `logp_LOO` and `dlogp_LOO` on the headline
+    (n = 3000); one FITC step of configuration #4 (N = 100 000). Returns
+    ({pair: summary}, the largest absolute differences of the launches)."""
+    out = {}
+    with captured_launches() as seen:
+        C = student_t_study.CHAINS
+        loglik, xg0, _, _ = student_t_study.config5_gpe(dev).make_logprob(include_priors=False)
+        starts = student_t_study.chain_starts(xg0, C, 2)
+        mesh = gp.make_mesh()
+
+        def sharded():
+            return lambda: list(vars(chains.sharded_ess(
+                loglik, starts, student_t_study.PRIOR_MU, student_t_study.PRIOR_SIGMA, 32, mesh,
+                n_iter=1)).values())
+
+        out["sharded_ess_iteration"], res = graph_pair(
+            f"one sharded_ess iteration, configuration #5 ({C} chains)", sharded,
+            GRAPH_BARS["sampler"])
+        if not torch.equal(res[0][1], res[1][1]):
+            fail("phase 32: the ESS's mean proposal count differs between graph and eager")
+        ll_fn = ess_mod.batched_loglik(loglik)
+        mu, sigma = (torch.tensor(v, dtype=starts.dtype, device=dev)
+                     for v in (student_t_study.PRIOR_MU, student_t_study.PRIOR_SIGMA))
+        ll0 = ess_mod._safe(ll_fn(starts))
+
+        def one():
+            return lambda: list(ess_mod.ess_iteration(
+                ll_fn, starts, ll0, mu, sigma,
+                hmc.RandomStream(torch.Generator(device=dev).manual_seed(33))))
+
+        out["ess_iteration"], res = graph_pair(
+            f"one ess_iteration, {C} chains, blocks of {ess_mod.SHRINK_BLOCK} rounds", one,
+            GRAPH_BARS["sampler"])
+        if not torch.equal(res[0][2], res[1][2]):
+            fail("phase 32: the ESS's proposals differ between graph and eager")
+        out["ess_iteration"]["max_proposals"] = int(res[0][2].max())
+
+        m3 = vi_study.config3_model(dev)
+        neg_elbo, theta0, _ = make_neg_elbo(m3)
+
+        def vi_step():
+            state = [adam_init(theta0)]
+
+            def call():
+                state[0], val = adam_step(neg_elbo, state[0], vi_study.LR)
+                return [*state[0], val]
+            return call
+
+        out["vi_adam_step"], _ = graph_pair(
+            f"one Adam step, configuration #3 (n = {vi_study.N})", vi_step, GRAPH_BARS["vi"])
+
+        es = elastic_study
+        X, y = es.data()
+        grown = es.model(dev, torch.float32)
+        for i in range(0, es.N - es.K, es.K):
+            grown.append(X[i:i + es.K], y[i:i + es.K])
+        n0 = grown.nobs
+
+        def append():
+            call = es.append_again(grown)
+            return lambda: [call()]
+
+        out["elastic_append"], _ = graph_pair(
+            f"one elastic append at n = {n0}, capacity {grown.capacity}", append,
+            GRAPH_BARS["elastic"][2:])
+
+        rng = np.random.RandomState(42)
+        Xh, yh = rng.randn(N_HEAD, D), rng.randn(N_HEAD)
+        mh = gp.GPE(Xh.astype(np.float32), yh.astype(np.float32), gp.MeanZero(),
+                    gp.SE(0.0, 0.0), lognoise=-1.0, device=dev)
+        out["loo_pair"], _ = graph_pair(
+            f"logp_LOO + dlogp_LOO, headline n = {N_HEAD}",
+            lambda: lambda: [gp.logp_LOO(mh), gp.dlogp_LOO(mh)], GRAPH_BARS["headline"])
+
+        model4 = fitc_study.config4_model(dev)
+
+        def fitc_step():
+            trainer = fitc_study.FitcAdam(model4)
+            return lambda: [torch.tensor(trainer.step()), *trainer.state]
+
+        out["fitc_step"], _ = graph_pair(
+            f"one FITC step, configuration #4 (N = {fitc_study.N})", fitc_step,
+            GRAPH_BARS["fitc"])
+    errs = check_captured("phase 32", seen)
+    del seen
+    return out, errs
 
 
 def phase_graphs(dev) -> dict:
@@ -1941,7 +2075,9 @@ def phase_graphs(dev) -> dict:
         launches each way; enqueue, CUDA-event and busy ms of each
         (`gpa_study.one_iteration`).
     Each pair is equal bit for bit, or its gap (`graph_gap`) is within
-    GRAPH_BARS and no accept decision differs. Last, the headline's model
+    GRAPH_BARS and no accept decision differs. Then the pairs of
+    `phase_graph_pairs` (the elliptical slice, VI's step, the elastic
+    append, the LOO pair, FITC's step). Last, the headline's model
     captured anew and dropped: the memory its graph reserved goes back to
     the card with it (at most a tenth left)."""
     out = {}
@@ -2030,6 +2166,9 @@ def phase_graphs(dev) -> dict:
     if any(r["launches"] != (17, 16) for r in row.values()) or \
             max(gaps) > GRAPH_BARS["sampler"][0]:
         fail(f"phase 32: the graphed split iteration's launches or gap {gaps}")
+
+    pairs, out["max_abs_err"] = phase_graph_pairs(dev)
+    out.update(pairs)
 
     # a model's graphs go with it, and the pool's memory with the last graph
     graphs.clear()
@@ -2279,7 +2418,7 @@ def main() -> int:
     print(f"phase 32: {time.perf_counter() - t0:.1f} s", flush=True)
     dist_errs = {k: max(dist[p]["max_abs_err"][k] for p in dist) for k in ("gram", "gram_vjp")}
     for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs,
-                 config5["max_abs_err"], dist_errs, table_errs):
+                 config5["max_abs_err"], dist_errs, table_errs, graphed["max_abs_err"]):
         worst32 = max(worst32, errs["gram"])
         vjp_worst32 = max(vjp_worst32, errs["gram_vjp"])
     print("sparse, VI and anchors: " + json.dumps({"fitc_100k": fitc, "vi": vi_out,
@@ -2316,7 +2455,7 @@ def main() -> int:
         "batched_1024x60x60": {**new_rows["config5 gram C=1024 n=60"],
                                "launches": config5_by_shape[0],
                                "max_abs_err": config5["max_abs_err"]["gram"]},
-        "elastic_cross_4032x64": {**new_rows["elastic cross gram 4032x64"],
+        "elastic_cross_4096x64": {**new_rows["elastic cross gram 4096x64"],
                                   "launches": elastic_by_shape["cross"]},
         "elastic_block_64x64": {**new_rows["elastic block gram 64x64"],
                                 "launches": elastic_by_shape["block"]},

@@ -71,9 +71,10 @@ class RandomStream:
         u = self.uniform((C,), like)
         return z, u, 2.0 * torch.pi * self.uniform((C,), like)
 
-    def ess_shrink(self, C, like):
-        """(C,) uniforms for one shrink round of the angle bracket."""
-        return self.uniform((C,), like)
+    def ess_shrink_block(self, R, C, like):
+        """(R, C) uniforms for a block of R shrink rounds of the angle
+        bracket, row r for round r."""
+        return self.uniform((R, C), like)
 
 
 def as_stream(generator, like) -> RandomStream:

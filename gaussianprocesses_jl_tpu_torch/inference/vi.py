@@ -13,9 +13,12 @@ variational conditional mu* = m* + A (m - mu), S* = K** - A (K - diag v) A^T,
 A = K*x K^-1, as in the JAX package.
 
 Two methods: "lbfgs" (scipy L-BFGS-B on the host, a non-finite value read
-as 1e100) and "adam" (`torch.optim.Adam` on the model's device; its update
-is optax's, m_hat / (sqrt(v_hat) + 1e-8), so in f64 its iterates follow the
-JAX package's step for step).
+as 1e100) and "adam" (`adam_update`, optax's `adam` written out, so in f64
+its iterates follow the JAX package's step for step). On the card the
+value and gradient of the L-BFGS-B route, and the whole Adam step (value,
+gradient and update), replay CUDA graphs (`utils/graphs.py`) kept for the
+fit's objective: the counterparts of the JAX package's jitted
+`value_and_grad` and `step`.
 """
 from __future__ import annotations
 
@@ -27,8 +30,10 @@ import torch
 from ..models.gpa import gpa_nugget
 from ..models.gpe import _as_X
 from ..ops.linalg import require_pd, solve_lower
+from ..utils import graphs
 
-__all__ = ["Approx", "elbo", "vi", "make_neg_elbo", "vi_predict_f", "vi_predict_y"]
+__all__ = ["Approx", "elbo", "vi", "make_neg_elbo", "vi_predict_f", "vi_predict_y",
+           "adam_update", "adam_init", "adam_step", "adam"]
 
 
 @dataclass
@@ -95,11 +100,55 @@ def make_neg_elbo(gp, nugget=None):
     return neg_elbo, theta0, n
 
 
-def _value_and_grad(neg_elbo, theta):
-    theta = theta.detach().requires_grad_()
-    val = neg_elbo(theta)
-    (g,) = torch.autograd.grad(val, theta)
+def _value_and_grad(objective, theta):
+    with torch.enable_grad():
+        theta = theta.detach().requires_grad_()
+        val = objective(theta)
+        (g,) = torch.autograd.grad(val, theta)
     return val.detach(), g
+
+
+def adam_update(theta, g, m, v, t, lr: float, b1: float = 0.9, b2: float = 0.999,
+                eps: float = 1e-8):
+    """One step of `optax.adam(lr)` from the gradient g: the moments m and v
+    and the step count t (a tensor of theta's dtype) in, (theta', m', v',
+    t') out, the bias corrections as optax writes them."""
+    m = (1 - b1) * g + b1 * m
+    v = (1 - b2) * g ** 2 + b2 * v
+    t = t + 1
+    update = (m / (1 - b1 ** t)) / (torch.sqrt(v / (1 - b2 ** t)) + eps)
+    return theta + (-lr) * update, m, v, t
+
+
+def _adam_step(objective, lr, theta, m, v, t):
+    val, g = _value_and_grad(objective, theta)
+    return (*adam_update(theta, g, m, v, t, lr), val)
+
+
+def adam_init(theta0) -> tuple:
+    """Adam's state at theta0: (theta, m, v, t), the moments and t zero."""
+    theta = theta0.detach()
+    return theta, torch.zeros_like(theta), torch.zeros_like(theta), theta.new_zeros(())
+
+
+def adam_step(objective, state: tuple, lr: float) -> tuple:
+    """(state', value): one Adam step on objective(theta) from `state`
+    (`adam_init`), value the objective at the step's start. On the card one
+    CUDA graph kept for `objective`."""
+    *state, val = graphs.run(objective, lambda *a: _adam_step(objective, lr, *a), *state,
+                             static=("adam", lr))
+    return tuple(state), val
+
+
+def adam(objective, theta0, nits: int, lr: float):
+    """`nits` Adam steps on objective(theta) from theta0: (theta, values),
+    values (nits,) the objective at each step's start; the step's graph is
+    captured once and replayed `nits` times."""
+    state, values = adam_init(theta0), []
+    for _ in range(nits):
+        state, val = adam_step(objective, state, lr)
+        values.append(val)
+    return state[0], torch.stack(values) if values else state[0].new_zeros(0)
 
 
 def vi(gp, nits: int = 100, method: str = "lbfgs", lr: float = 0.05,
@@ -112,7 +161,8 @@ def vi(gp, nits: int = 100, method: str = "lbfgs", lr: float = 0.05,
         from scipy.optimize import minimize
 
         def fun(x):
-            val, g = _value_and_grad(neg_elbo, torch.as_tensor(x).to(theta0))
+            val, g = graphs.run(neg_elbo, lambda th: _value_and_grad(neg_elbo, th),
+                                torch.as_tensor(x).to(theta0), static="value_and_grad")
             val = float(val)
             return (np.float64(val) if np.isfinite(val) else 1e100,
                     g.cpu().numpy().astype(np.float64))
@@ -123,17 +173,9 @@ def vi(gp, nits: int = 100, method: str = "lbfgs", lr: float = 0.05,
         if verbose:
             print(f"vi: {out.nit} iterations, elbo={-float(out.fun):.4f}")
     elif method == "adam":
-        theta = theta0.clone().requires_grad_()
-        opt = torch.optim.Adam([theta], lr=lr, eps=1e-8)
-        val = None
-        for _ in range(nits):
-            opt.zero_grad(set_to_none=True)
-            val = neg_elbo(theta)
-            val.backward()
-            opt.step()
-        theta = theta.detach()
+        theta, values = adam(neg_elbo, theta0, nits, lr)
         if verbose:
-            print(f"vi: {nits} adam steps, elbo={-float(val):.4f}")
+            print(f"vi: {nits} adam steps, elbo={-float(values[-1]):.4f}")
     else:
         raise ValueError(f"unknown vi method {method!r}")
 

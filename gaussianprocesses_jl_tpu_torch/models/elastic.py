@@ -9,11 +9,15 @@ points to n extends the factor of K + noise I by its new rows,
     L_new = [[L, 0], [B^T, chol(D - B^T B)]],  B = L^-1 C,
 
 with C = K(X, x_new) through the kernel's gram (on the card, the gram
-kernel's cross walk) and D = K(x_new) + noise I: O(n^2 k) for each append
-in place of an O(n^3) refit. Nothing here is compiled, so the extension
-works on the active block L[:n, :n] alone, where the JAX package solves
-against the whole identity-padded buffer; the numbers are the same to
-rounding.
+kernel's cross walk) and D = K(x_new) + noise I: O(capacity^2 k) for each
+append in place of an O(n^3) refit. As in the JAX package the append works
+on the whole padded buffer: the factor is the identity on the rows and
+columns past n, C is the gram over every row of X with the rows past n
+masked to 0, B = L^-1 C is solved against the whole factor, and the new
+rows are written at the offset n, a tensor on the data's device. So its
+shapes depend on (capacity, k) alone, and on the card an append replays
+one CUDA graph (`utils/graphs.py`) kept for the model at each (capacity,
+k), the counterpart of the JAX package's jitted `extend_cholesky`.
 
 The factor is rebuilt lazily: `set_params` only marks it stale, and the
 next `chol`, `mll`, `alpha` or `append` rebuilds it in full, as does the
@@ -29,6 +33,7 @@ import torch
 from ..ops.kernels import Kernel, SEIso
 from ..ops.linalg import _chol, chol_solve, solve_lower
 from ..ops.means import Mean, MeanZero
+from ..utils import graphs
 from ..utils.params import wrap_param
 from .covariance import FullCovariance
 from .gpe import GPE, GPEParams, _as_X, _device
@@ -44,14 +49,32 @@ def _factor(K: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, L, torch.full_like(L, math.nan))
 
 
-def extend_cholesky(L: torch.Tensor, C: torch.Tensor, D: torch.Tensor, n: int) -> None:
-    """Extend the factor held in L[:n, :n] by k = D.shape[0] rows, in place:
-    L[n:n+k, :n] = (L[:n, :n]^-1 C)^T and L[n:n+k, n:n+k] = chol(D - B^T B).
-    C: (n, k) = K(X[:n], x_new); D: (k, k) = K(x_new) + noise I."""
+def extend_cholesky(L: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                    n: torch.Tensor) -> torch.Tensor:
+    """The padded factor extended by k = D.shape[0] rows at the offset n (a
+    0-d int64 tensor on L's device; nothing is read back to the host).
+
+    L: (cap, cap), the factor on [:n, :n] and the identity past n.
+    C: (cap, k) = K(X, x_new), its rows from n on zero.
+    D: (k, k) = K(x_new) + noise I.
+    Returns L with rows [n, n + k) replaced by [B^T, chol(D - B^T B), 0],
+    B = L^-1 C (its rows from n on are zero)."""
     k = D.shape[0]
-    B = solve_lower(L[:n, :n], C)
-    L[n:n + k, :n] = B.T
-    L[n:n + k, n:n + k] = _factor(D - B.T @ B)
+    B = solve_lower(L, C)
+    at = n + torch.arange(k, device=L.device)
+    rows = B.T.index_copy(1, at, _factor(D - B.T @ B))
+    return L.index_copy(0, at, rows)
+
+
+def _append(L, X, x_new, n, lognoise, kernel):
+    """The factor of the model's first n points (a tensor) extended by
+    x_new, over the whole capacity of X."""
+    mask = torch.arange(X.shape[0], device=X.device) < n
+    C = kernel.gram(X, x_new) * mask[:, None].to(X.dtype)
+    k = x_new.shape[0]
+    D = kernel.gram(x_new) + torch.exp(2.0 * lognoise) * torch.eye(
+        k, dtype=X.dtype, device=X.device)
+    return extend_cholesky(L, C, D, n)
 
 
 class ElasticGPE(GPE):
@@ -120,7 +143,6 @@ class ElasticGPE(GPE):
         y = self._y.new_zeros(self.capacity)
         X[:n], y[:n] = self._X[:n], self._y[:n]
         self._X, self._y = X, y
-        self._L = torch.eye(self.capacity, dtype=self.dtype, device=self.device)
         self._fresh = False
 
     def _noise_var(self):
@@ -143,12 +165,11 @@ class ElasticGPE(GPE):
         self._y[n:n + k] = y_new
         self._n = n + k
         if self._fresh and n > 0:
+            n_t = torch.full((), n, dtype=torch.int64, device=self.device)
             with torch.no_grad():
-                kern = self.params.kernel
-                C = kern.gram(self._X[:n], x_new)
-                D = kern.gram(x_new) + self._noise_var() * torch.eye(
-                    k, dtype=self.dtype, device=self.device)
-                extend_cholesky(self._L, C, D, n)
+                self._L = graphs.run(self, _append, self._L, self._X, x_new, n_t,
+                                     self.params.lognoise.value, self.params.kernel,
+                                     static="append")
         else:
             self._rebuild()
         return self
@@ -157,9 +178,11 @@ class ElasticGPE(GPE):
         n = self._n
         with torch.no_grad():
             K = self.params.kernel.gram(self._X[:n])
-            self._L[:n, :n] = _factor(K + self._noise_var() * torch.eye(
+            # the identity past n, as the padded append needs it
+            L = torch.eye(self.capacity, dtype=self.dtype, device=self.device)
+            L[:n, :n] = _factor(K + self._noise_var() * torch.eye(
                 n, dtype=self.dtype, device=self.device))
-        self._fresh = True
+        self._L, self._fresh = L, True
 
     def set_params(self, hyp, **flags):
         # only marks the factor stale: a sweep of set_params costs no refit,

@@ -105,15 +105,25 @@ def gpa_target(params: GPAParams, X, y, covstrat=FullCovariance()):
     return ll + logp_v + _hyper_prior(params), aux
 
 
+def _predict_f(params: GPAParams, X, y, Xs, covstrat, full_cov: bool):
+    """(mean, variance or covariance, ok) of the latent posterior at Xs; ok
+    the prior's factorization flag."""
+    pd, mu, f = _latent_f(params, X, covstrat)
+    alpha = pd.solve(f - mu)
+    mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, f - mu, alpha, Xs, full_cov)
+    return params.mean.mean(Xs) + mu_cross, cov, pd.ok
+
+
+_WHAT = "the latent predictive's prior K + nugget"
+
+
 def gpa_predict_f(params: GPAParams, X, y, Xs, covstrat=FullCovariance(),
                   full_cov: bool = False):
     """Latent posterior at Xs: alpha = cK^-1 L v, then the strategy's
     predictive MVN."""
-    pd, mu, f = _latent_f(params, X, covstrat)
-    require_pd(pd.ok, "the latent predictive's prior K + nugget")
-    alpha = pd.solve(f - mu)
-    mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, f - mu, alpha, Xs, full_cov)
-    return params.mean.mean(Xs) + mu_cross, cov
+    mu, cov, ok = _predict_f(params, X, y, Xs, covstrat, full_cov)
+    require_pd(ok, _WHAT)
+    return mu, cov
 
 
 def _gpa_value_and_grad(*args):
@@ -325,9 +335,14 @@ class GPA:
 
     # -- prediction --------------------------------------------------------
     def predict_f(self, xs, full_cov: bool = False):
+        """The latent predictive; on the card one CUDA graph kept for the
+        model at each shape of xs and `full_cov`."""
         xs = _as_X(xs, dtype=self.dtype, device=self.device)
         with torch.no_grad():
-            return gpa_predict_f(self.params, self.x, self.y, xs, self.covstrat, full_cov)
+            mu, cov, ok = graphs.run(self, _predict_f, self.params, self.x, self.y, xs,
+                                     self.covstrat, full_cov, static="predict_f")
+        require_pd(ok, _WHAT)
+        return mu, cov
 
     def predict_y(self, xs, full_cov: bool = False):
         """Predictive observation moments through the likelihood's

@@ -92,6 +92,17 @@ def gpe_target(params: GPEParams, X, y, covstrat=FullCovariance()):
     return mll + params.prior_logpdf(), aux
 
 
+def _predict_f(params: GPEParams, X, y, Xs, covstrat, full_cov: bool, blockindpred):
+    """(mean, variance or covariance, ok) of the latent predictive; ok the
+    train covariance's factorization flag."""
+    pd = gpe_factorize(params, X, covstrat)
+    r = y - params.mean.mean(X)
+    alpha = pd.solve(r)
+    mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov,
+                                         blockindpred)
+    return params.mean.mean(Xs) + mu_cross, cov, pd.ok
+
+
 def gpe_predict_f(params: GPEParams, X, y, Xs, covstrat=FullCovariance(),
                   full_cov: bool = False, blockindpred=None):
     """Posterior predictive of the latent f at Xs, batched.
@@ -99,13 +110,9 @@ def gpe_predict_f(params: GPEParams, X, y, Xs, covstrat=FullCovariance(),
     blockindpred: padded (idx, mask) tuples (`models.sparse.pad_pred_blocks`)
     assigning test points to FSA training blocks for the cross-Lambda
     correction; only FullScaleApproxStrat accepts it."""
-    pd = gpe_factorize(params, X, covstrat)
-    require_pd(pd.ok, "the predictive's train covariance")
-    r = y - params.mean.mean(X)
-    alpha = pd.solve(r)
-    mu_cross, cov = covstrat.predict_mvn(pd, params.kernel, X, r, alpha, Xs, full_cov,
-                                         blockindpred)
-    return params.mean.mean(Xs) + mu_cross, cov
+    mu, cov, ok = _predict_f(params, X, y, Xs, covstrat, full_cov, blockindpred)
+    require_pd(ok, "the predictive's train covariance")
+    return mu, cov
 
 
 def value_and_grad(target, sub, full0, flags, params, X, y, covstrat):
@@ -292,7 +299,9 @@ class GPE:
         """Posterior latent predictive (mean, variance or covariance). For an
         FSA model, `blockindpred` (one sequence of test-point indices for
         each training block) turns on the cross-block Lambda_xf correction;
-        test points left unassigned are treated as their own blocks."""
+        test points left unassigned are treated as their own blocks. On
+        the card one CUDA graph kept for the model at each shape of xs and
+        `full_cov`."""
         xs = _as_X(xs, dtype=self.dtype, device=self.device)
         if blockindpred is not None:
             from .sparse import FullScaleApproxStrat, pad_pred_blocks
@@ -301,11 +310,16 @@ class GPE:
                 raise TypeError(
                     "blockindpred is only meaningful for the FSA strategy; "
                     f"got {type(self.covstrat).__name__}")
-            blockindpred = pad_pred_blocks(blockindpred, xs.shape[0],
-                                           self.covstrat.block_idx.shape[0])
+            idx, mask = pad_pred_blocks(blockindpred, xs.shape[0],
+                                        self.covstrat.block_idx.shape[0])
+            # device tensors made here, outside the graph
+            blockindpred = (torch.as_tensor(idx, dtype=torch.int64, device=self.device),
+                            torch.as_tensor(mask, dtype=self.dtype, device=self.device))
         with torch.no_grad():
-            return gpe_predict_f(self.params, self.x, self.y, xs, self.covstrat,
-                                 full_cov, blockindpred)
+            mu, cov, ok = graphs.run(self, _predict_f, self.params, self.x, self.y, xs,
+                                     self.covstrat, full_cov, blockindpred, static="predict_f")
+        require_pd(ok, "the predictive's train covariance")
+        return mu, cov
 
     def predict_y(self, xs, full_cov: bool = False):
         """The latent predictive plus observation noise.

@@ -55,6 +55,14 @@ class _DiagLambda(Module):
 
     d: Any  # (n,)
 
+    def solve(self, B):
+        """Lambda^-1 B, B (n,) or (n, k)."""
+        return B / self.d if B.ndim == 1 else B / self.d[:, None]
+
+    def matvec(self, B):
+        """Lambda B, B (n,) or (n, k)."""
+        return B * self.d if B.ndim == 1 else B * self.d[:, None]
+
     def logdet(self):
         return torch.sum(torch.log(self.d))
 
@@ -100,6 +108,16 @@ class _BlockDiagLambda(Module):
     block_idx: Any = None
     block_mask: Any = None
     n: int = 0
+
+    def solve(self, B):
+        """Lambda^-1 B, B (n,) or (n, k): a solve against each block's
+        factor, the padded lanes masked."""
+        vec = B.ndim == 1
+        B2 = B[:, None] if vec else B
+        idx, mask = self.block_idx, self.block_mask
+        Xb = solve_upper(self.chols, solve_lower(self.chols, _gather_blocks(B2, idx, mask)))
+        out = _scatter_blocks(Xb, idx, mask, B2.shape[0])
+        return out[:, 0] if vec else out
 
     def logdet(self):
         # padded diagonal entries are 1: log contribution 0

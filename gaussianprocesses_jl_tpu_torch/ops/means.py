@@ -37,6 +37,15 @@ class Mean(Module):
     def __mul__(self, other):
         return ProdMean(self, other)
 
+    def grad_stack(self, X):
+        """(n, p) Jacobian of the mean vector at X with respect to the flat
+        parameters (ref: src/means/means.jl grad_stack)."""
+
+        def f(vec):
+            return self.with_flat_params(vec).mean(X)
+
+        return torch.func.jacfwd(f)(self.flat_params().detach())
+
 
 @module(static=())
 class MeanZero(Mean):

@@ -50,7 +50,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
-from ..inference.ess import _safe, ess_iteration
+from ..inference.ess import SHRINK_BLOCK, _safe, batched_loglik, ess_iteration
 from ..inference.hmc import RandomStream, batched_value_and_grad, hmc_iteration, start
 from ..inference.split import _cached, block_a, da_init, da_update
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
@@ -89,8 +89,8 @@ class _Rows(RandomStream):
     def ess_start(self, c, D, like):
         return tuple(a[self.rows] for a in self.stream.ess_start(self.C, D, like))
 
-    def ess_shrink(self, c, like):
-        return self.stream.ess_shrink(self.C, like)[self.rows]
+    def ess_shrink_block(self, R, c, like):
+        return self.stream.ess_shrink_block(R, self.C, like)[:, self.rows]
 
 
 class _Fleet:
@@ -372,23 +372,27 @@ class ShardedESSResult:
 
 
 def sharded_ess(loglik_fn: Callable, theta0, prior_mu, prior_sigma, seed, mesh: Mesh, *,
-                axis: str = "chains", n_iter: int = 1000) -> ShardedESSResult:
+                axis: str = "chains", n_iter: int = 1000,
+                rounds: int = SHRINK_BLOCK) -> ShardedESSResult:
     """C elliptical-slice chains (`inference/ess.py`) sharded over `mesh`
     axis `axis`, with independent Normal priors N(prior_mu, prior_sigma^2);
     the mean shrink-proposal count is pooled over the fleet. theta0: (C,
-    D), C divisible by the axis size; seed as for `sharded_hmc`."""
+    D), C divisible by the axis size; seed as for `sharded_hmc`; `rounds`
+    shrink rounds a block. A process runs blocks while any of its own
+    chains shrinks; the gathers follow the last iteration."""
     C, D = theta0.shape
     fleet = _Fleet(mesh, axis, C, seed)
     with torch.no_grad():
         f = _rows(theta0, fleet)
         prior_mu = torch.as_tensor(prior_mu, dtype=f.dtype, device=f.device)
         prior_sigma = torch.as_tensor(prior_sigma, dtype=f.dtype, device=f.device)
-        ll_fn = torch.func.vmap(loglik_fn)
+        ll_fn = batched_loglik(loglik_fn)
         ll_f = _safe(ll_fn(f))
         samples = f.new_empty((f.shape[0], n_iter, D))
         props = torch.zeros(f.shape[0], dtype=torch.int64, device=f.device)
         for it in range(n_iter):
-            f, ll_f, p = ess_iteration(ll_fn, f, ll_f, prior_mu, prior_sigma, fleet.stream(it))
+            f, ll_f, p = ess_iteration(ll_fn, f, ll_f, prior_mu, prior_sigma, fleet.stream(it),
+                                       rounds)
             samples[:, it] = f
             props += p
         mean_props = fleet.mean(props.to(torch.float32) / n_iter)

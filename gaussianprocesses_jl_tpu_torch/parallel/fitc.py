@@ -79,8 +79,7 @@ def fitc_mll_sharded_fn(kernel_template, mesh, axis: str = "data"):
         quad = R_aug[m, m] ** 2
         logdet = (2.0 * torch.sum(torch.log(Rdiag)) - chol_logdet(Luu)
                   + psum(torch.sum(torch.log(d)), mesh, axis))
-        n_total = psum(torch.tensor(float(y_loc.shape[0]), dtype=y_loc.dtype,
-                                    device=y_loc.device), mesh, axis)
+        n_total = psum(y_loc.new_full((), float(y_loc.shape[0])), mesh, axis)
         mll = -0.5 * (quad + logdet + n_total * _LOG_2PI)
         ok = ok_uu & torch.isfinite(R_aug).all() & (Rdiag > 0).all()
         return torch.where(ok, mll, torch.full_like(mll, -math.inf))

@@ -4,8 +4,9 @@
 Two axes of scale over a mesh:
 
   * `sharded_vi`: R restarts of the mean-field fit, each process running
-    its R/P rows of one (R, 2n) batch of [m; rho] under one Adam (the
-    port's `torch.optim.Adam`, whose update is optax's). Each step
+    its R/P rows of one (R, 2n) batch of [m; rho] under one Adam
+    (`inference/vi.adam`, optax's update; on the card one CUDA graph a
+    step, no collective in it). Each step
     evaluates the rows' objectives one row at a time, so a row's
     arithmetic is `vi`'s to the bit and the host's work grows with R/P
     (a `torch.func.vmap` over the rows batches the solves and changes
@@ -22,11 +23,13 @@ Two axes of scale over a mesh:
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
 
-from ..inference.vi import Approx, _prior_pieces, make_neg_elbo
+from ..inference.vi import Approx, _prior_pieces, adam, make_neg_elbo
+from ..utils import graphs
 from .collectives import copy, gather_, psum
 
 __all__ = ["sharded_vi", "ShardedVIResult", "sharded_elbo_fn", "sharded_elbo",
@@ -71,15 +74,14 @@ def sharded_vi(gp, mesh, *, axis: str = "chains", restarts: int | None = None,
     starts = theta0[None, :] + scale * _start_noise(seed, R, theta0)
     r = R // P_
     me = mesh.coords[axis]
-    theta = starts[me * r:(me + 1) * r].clone().requires_grad_()
-    opt = torch.optim.Adam([theta], lr=lr, eps=1e-8)
-    for _ in range(nits):
-        opt.zero_grad(set_to_none=True)
-        sum(neg_elbo(theta[i]) for i in range(r)).backward()
-        opt.step()
+
+    def objective(theta):
+        return sum(neg_elbo(theta[i]) for i in range(r))
+
+    theta, _ = adam(objective, starts[me * r:(me + 1) * r], nits, lr)
     with torch.no_grad():
         final = -torch.stack([neg_elbo(theta[i]) for i in range(r)])
-    thetas = gather_(theta.detach(), mesh, axis)
+    thetas = gather_(theta, mesh, axis)
     elbos = gather_(final, mesh, axis)
     best = int(torch.argmax(elbos))
     th = thetas[best]
@@ -141,7 +143,9 @@ def sharded_vi_train(gp, mesh, *, axis: str = "data", nits: int = 200, lr: float
     evaluates the sharded objective and its gradient, every process doing
     only its observations' share of the per-observation work, forward and
     backward. From the same start it follows the replicated
-    `vi(method="adam")` to reduction-order rounding.
+    `vi(method="adam")` to reduction-order rounding. At P = 1 on the card
+    each step replays the CUDA graph of `inference/vi.adam`; at P > 1 it
+    runs eagerly (`graphs.eager()`: no collective under capture).
 
     theta0: an optional (2n,) start [m; rho]; by default the prior's, as in
     `vi` (m = mu, v = diag K)."""
@@ -150,18 +154,13 @@ def sharded_vi_train(gp, mesh, *, axis: str = "data", nits: int = 200, lr: float
         with torch.no_grad():
             v0 = torch.clamp(gp.params.kernel.diag(gp.x), min=1e-8)
             theta0 = torch.cat([mu, 0.5 * torch.log(v0)])
-    theta = gp._tensor(theta0).clone().requires_grad_()
-    opt = torch.optim.Adam([theta], lr=lr, eps=1e-8)
-    trace = []
-    for _ in range(nits):
-        opt.zero_grad(set_to_none=True)
-        val = -elbo_fn(theta[:n], torch.exp(2.0 * theta[n:]))
-        val.backward()
-        opt.step()
-        trace.append(-val.detach())
-    theta = theta.detach()
+
+    def neg_elbo(theta):
+        return -elbo_fn(theta[:n], torch.exp(2.0 * theta[n:]))
+
+    with graphs.eager() if mesh.shape[axis] > 1 else contextlib.nullcontext():
+        theta, values = adam(neg_elbo, gp._tensor(theta0), nits, lr)
     m, v = theta[:n], torch.exp(2.0 * theta[n:])
     with torch.no_grad():
         final = float(elbo_fn(m, v))
-    return ShardedVITrainResult(approx=Approx(m=m, v=v), elbo=final,
-                                elbo_trace=torch.stack(trace) if trace else theta.new_zeros(0))
+    return ShardedVITrainResult(approx=Approx(m=m, v=v), elbo=final, elbo_trace=-values)

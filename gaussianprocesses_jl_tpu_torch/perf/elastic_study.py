@@ -17,7 +17,9 @@ it by K(X, x_new) at n x 64 and K(x_new) at 64 x 64). At n = 1024, 2048,
 3072 and 4096 the maintained factor's mll, alpha and factor are held
 against a fresh f64 GPE on the CPU. Each append is timed by CUDA events
 and its gram launches are counted; one full refit at n = 1024 and 4096 is
-timed beside it.
+timed beside it. Last, the append at n = 4032 (capacity 4096) again and
+again from the same factor (`append_again`), through its CUDA graph and
+eager: CUDA-event, host enqueue and device-busy ms.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ from gaussianprocesses_jl_tpu_torch.models.elastic import ElasticGPE
 from gaussianprocesses_jl_tpu_torch.models.gpe import gpe_factorize
 from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
 
-__all__ = ["data", "model", "reference", "gaps", "run", "f32_gap", "main"]
+__all__ = ["data", "model", "reference", "gaps", "run", "append_again", "append_times",
+           "f32_gap", "main"]
 
 N, D, K, CAPACITY, STEPSIZE = 4096, 10, 64, 1024, 1024
 LL = np.linspace(-0.2, 0.3, D)
@@ -123,6 +126,43 @@ def refit_ms(m: ElasticGPE, n) -> float:
     return statistics.median(times[1:])
 
 
+def append_again(grown: ElasticGPE):
+    """A call that appends the next K points to a model grown to n (< N),
+    each time from the grown model's factor: a fresh model on the same
+    buffers, its count and factor set back before each append (an append
+    makes a new factor and writes the same rows of X and y)."""
+    X, y = data()
+    n0, L0 = grown.nobs, grown._L
+    m = model(grown.device, grown.dtype)
+    m.capacity, m._X, m._y = grown.capacity, grown._X.clone(), grown._y.clone()
+
+    def call():
+        m._n, m._L, m._fresh = n0, L0, True
+        m.append(X[n0:n0 + K], y[n0:n0 + K])
+        return m._L
+
+    return call
+
+
+def append_times(grown: ElasticGPE) -> dict:
+    """The append at the grown model's n through its CUDA graph and eager:
+    CUDA-event ms (median of 20), host enqueue ms and device-busy ms."""
+    from gaussianprocesses_jl_tpu_torch.perf.gram_study import eagerly, enqueue_ms, time_ms
+    from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
+
+    out = {"n": grown.nobs, "capacity": grown.capacity}
+    for label, way in (("graph", lambda f: f), ("eager", eagerly)):
+        call = way(append_again(grown))
+        busy, kernels, _ = device_profile(call, reps=3)
+        out[label] = {"event_ms": time_ms(call), "enqueue_ms": enqueue_ms(call),
+                      "busy_ms": busy if kernels else None}
+    print(f"append at n = {out['n']}, capacity {out['capacity']}: " + ", ".join(
+        f"{k} {v['event_ms']:.4f} ms events, {v['enqueue_ms']:.4f} ms enqueue, "
+        f"{v['busy_ms']} ms busy" for k, v in out.items() if k in ("graph", "eager")),
+        flush=True)
+    return out
+
+
 def f32_gap() -> dict:
     """On the CPU: the f32 and the f64 elastic model's gaps from a fresh f64
     GPE at CHECK_AT (the f32 model's gram, above the plain version's size
@@ -155,8 +195,12 @@ def main(argv=None) -> int:
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
     out = run(dev, torch.float32)
     ms = {a["n"]: a["ms"] for a in out["appends"]}
+    grown = out["model"]
+    grown._n = N - K  # the last append's start, its factor rebuilt
+    grown._rebuild()
     result = {"gaps": out["gaps"], **{f"append_ms_at_{n}": ms[n] for n in (CAPACITY - K, N - K)},
-              **{f"refit_ms_{n}": refit_ms(out["model"], n) for n in (CAPACITY, N)}}
+              **{f"refit_ms_{n}": refit_ms(out["model"], n) for n in (CAPACITY, N)},
+              "append_at_4032": append_times(grown)}
     print(json.dumps(result))
     return 0
 

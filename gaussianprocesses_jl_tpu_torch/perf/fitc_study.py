@@ -13,7 +13,8 @@ steps with a zero gradient), the loss read back each step.
 
 On the card it prints, for 2 warm-up and 6 timed steps: ms per step (CUDA
 events), one step's host enqueue and device-busy time and its split by
-kernel and by operator (torch.profiler), the loss trace (finite, falling),
+kernel and by operator (torch.profiler), a whole step through its CUDA
+graph and eager (`step_times`), the loss trace (finite, falling),
 the gram and VJP launches a step (2 + 2: K(Xu) and K(Xu, X), each shape
 counted), and the cross gram K(Xu, X) alone, 512 x 100 000, forward and
 VJP: own device time against the byte bound, time per call and the plain
@@ -35,8 +36,10 @@ import numpy as np
 import torch
 
 import gaussianprocesses_jl_tpu_torch as gp
+from gaussianprocesses_jl_tpu_torch.inference.vi import _value_and_grad, adam_update
 from gaussianprocesses_jl_tpu_torch.models.gpe import gpe_mll
 from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
+from gaussianprocesses_jl_tpu_torch.utils import graphs
 
 __all__ = ["N", "M", "D_FEAT", "LR", "config4_data", "config4_model", "FitcAdam",
            "gap_states", "f32_gap", "cross_gram", "run", "WARMUP", "STEPS"]
@@ -63,32 +66,40 @@ def config4_model(device, n=N, dtype=np.float32):
 
 
 class FitcAdam:
-    """Adam (lr 0.05) on the model's flat parameters against -mll, with the
-    reject-don't-commit guard; `step()` returns the loss at the parameters
-    it evaluated, read back to the host."""
+    """Adam (lr 0.05, `inference/vi.adam_update`) on the model's flat
+    parameters against -mll, with the reject-don't-commit guard. `step()`
+    returns the loss at the parameters it evaluated, read back to the host;
+    on the card the step (value, gradient, guard and update) is one CUDA
+    graph kept for the trainer."""
 
     def __init__(self, model, lr=LR):
-        self.model = model
-        self.theta = model.params.flat_params().detach().clone().requires_grad_()
-        self.last_good = self.theta.detach().clone()
-        self.opt = torch.optim.Adam([self.theta], lr=lr, eps=1e-8)
+        self.model, self.lr = model, lr
+        theta = model.params.flat_params().detach().clone()
+        zeros = torch.zeros_like(theta)
+        # (theta, the last good theta, Adam's moments and step count)
+        self.state = (theta, theta.clone(), zeros, zeros.clone(), theta.new_zeros(()))
 
-    def loss_and_grad(self):
+    @property
+    def theta(self):
+        return self.state[0]
+
+    def loss(self, theta):
         m = self.model
-        theta = self.theta.detach().requires_grad_()
-        loss = -gpe_mll(m.params.with_flat_params(theta), m.x, m.y, m.covstrat)[0]
-        (g,) = torch.autograd.grad(loss, theta)
-        return loss.detach(), g
+        return -gpe_mll(m.params.with_flat_params(theta), m.x, m.y, m.covstrat)[0]
+
+    def loss_and_grad(self, theta=None):
+        return _value_and_grad(self.loss, self.theta if theta is None else theta)
+
+    def _step(self, theta, last_good, m, v, t):
+        loss, g = self.loss_and_grad(theta)
+        ok = torch.isfinite(loss) & torch.isfinite(g).all()
+        base = torch.where(ok, theta, last_good)
+        g = torch.where(ok, g, torch.zeros_like(g))
+        theta, m, v, t = adam_update(base, g, m, v, t, self.lr)
+        return theta, base, m, v, t, loss
 
     def step(self) -> float:
-        loss, g = self.loss_and_grad()
-        ok = torch.isfinite(loss) & torch.isfinite(g).all()
-        with torch.no_grad():
-            base = torch.where(ok, self.theta, self.last_good)
-            self.theta.copy_(base)
-            self.last_good = base
-        self.theta.grad = torch.where(ok, g, torch.zeros_like(g))
-        self.opt.step()
+        *self.state, loss = graphs.run(self, self._step, *self.state, static="fitc_adam")
         return float(loss)
 
 
@@ -215,11 +226,33 @@ def run(device) -> dict:
         print(f"  {title} by self device time per step:")
         for key, ms, calls in rows:
             print(f"    {ms:9.4f} ms  {calls:3d} x {key[:90]}")
+    out["step"] = step_times(model)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise RuntimeError(f"FITC: loss not finite or not falling: {losses}")
     if n_launch != (2, 2) or cross != (1, 1):
         raise RuntimeError(f"FITC: {n_launch} gram and gram_vjp launches a step ({cross} at "
                            f"{M} x {N}), expected (2, 2) and (1, 1)")
+    return out
+
+
+def step_times(model) -> dict:
+    """A whole step (value, gradient, guard, Adam update and the loss read
+    back) through its CUDA graph and eager, each on a trainer of its own:
+    CUDA-event ms (median of STEPS after WARMUP), host ms until the step
+    returns, device-busy ms (torch.profiler; None where it saw no kernel)."""
+    from gaussianprocesses_jl_tpu_torch.perf.gram_study import eagerly, enqueue_ms, time_ms
+    from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
+
+    out = {}
+    for label, way in (("graph", lambda f: f), ("eager", eagerly)):
+        step = way(FitcAdam(model).step)
+        busy, kernels, _ = device_profile(step, reps=3)
+        out[label] = {"event_ms": time_ms(step, reps=STEPS, warmup=WARMUP),
+                      "host_ms": enqueue_ms(step, reps=STEPS),
+                      "busy_ms": busy if kernels else None}
+    print("  a step: " + ", ".join(
+        f"{k} {v['event_ms']:.3f} ms events, {v['host_ms']:.3f} ms host, {v['busy_ms']} ms busy"
+        for k, v in out.items()), flush=True)
     return out
 
 

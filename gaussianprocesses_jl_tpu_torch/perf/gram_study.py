@@ -23,8 +23,8 @@ the path: `PYTHONPATH=<checkout> python3 <this file>`.
    same numbers as 1 and the vmapped plain versions;
 4. new shapes (`new_shapes`): configuration #5's grams, 1024 chains of SE
    at n = 60, d = 1, the inputs shared and p per chain, forward and VJP
-   (dp); the elastic append's grams at d = 10, K(X, x_new) at 4032 x 64
-   and K(x_new) at 64 x 64, forward.
+   (dp); the elastic append's grams at d = 10, K(X, x_new) at 4096 x 64
+   (over the capacity) and K(x_new) at 64 x 64, forward.
 The last line of its output is the numbers as one JSON object.
 """
 from __future__ import annotations
@@ -233,11 +233,11 @@ def _rows(cases, label="") -> dict:
     return out
 
 
-def new_shapes(device, chains=1024, n=60, n_el=4032, k=64, d_el=10) -> dict:
+def new_shapes(device, chains=1024, n=60, n_el=4096, k=64, d_el=10) -> dict:
     """The grams of configuration #5 (`chains` SE grams at n points in d = 1,
     the inputs shared, p per chain, in one launch; the VJP for dp alone, as
-    the sampler's target asks) and of the elastic append (K(X, x_new) at
-    n_el x k and K(x_new) at k x k, d = 10), f32. Batched `torch.cdist`
+    the sampler's target asks) and of the elastic append (K(X, x_new) over
+    the capacity, n_el x k, and K(x_new) at k x k, d = 10), f32. Batched `torch.cdist`
     beside configuration #5's forward."""
     rng = np.random.RandomState(24)
     f32 = dict(dtype=torch.float32, device=device)

@@ -43,7 +43,7 @@ import torch
 
 import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.inference.hmc import batched_value_and_grad
-from gaussianprocesses_jl_tpu_torch.inference.vi import make_neg_elbo
+from gaussianprocesses_jl_tpu_torch.inference.vi import adam, make_neg_elbo
 from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
 from gaussianprocesses_jl_tpu_torch.ops.linalg import add_diag
 from gaussianprocesses_jl_tpu_torch.parallel import chains
@@ -53,6 +53,7 @@ from gaussianprocesses_jl_tpu_torch.parallel.fitc import fitc_mll_sharded_fn, sh
 from gaussianprocesses_jl_tpu_torch.parallel.mesh import make_pod_mesh
 from gaussianprocesses_jl_tpu_torch.parallel.vi import sharded_vi, sharded_vi_train
 from gaussianprocesses_jl_tpu_torch.perf import fitc_study, gpa_study, vi_study
+from gaussianprocesses_jl_tpu_torch.utils import graphs
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     _rows,
     by_shape,
@@ -219,19 +220,24 @@ class ShardedFitcAdam(fitc_study.FitcAdam):
 
     def __init__(self, model, mesh, lr=fitc_study.LR):
         super().__init__(model, lr)
-        self.mll = fitc_mll_sharded_fn(model.params.kernel, mesh)
+        self.mesh, self.mll = mesh, fitc_mll_sharded_fn(model.params.kernel, mesh)
         self.X_loc, self.y_loc = shard_data(model.x, model.y, mesh)
 
-    def mll_and_grad(self, theta):
-        theta = theta.detach().requires_grad_()
-        mll = self.mll(self.model.params.with_flat_params(theta), self.X_loc, self.y_loc,
-                       self.model.covstrat.inducing)
-        (g,) = torch.autograd.grad(mll, theta)
-        return mll.detach(), g
+    def loss(self, theta):
+        return -self.mll(self.model.params.with_flat_params(theta), self.X_loc, self.y_loc,
+                         self.model.covstrat.inducing)
 
-    def loss_and_grad(self):
-        mll, g = self.mll_and_grad(self.theta)
-        return -mll, -g
+    def mll_and_grad(self, theta):
+        loss, g = self.loss_and_grad(theta)
+        return -loss, -g
+
+    def step(self) -> float:
+        """At P = 1 the graphed step; at P > 1 eager (no collective under
+        capture)."""
+        if self.mesh.shape["data"] == 1:
+            return super().step()
+        with graphs.eager():
+            return super().step()
 
 
 def fitc(device, warmup=fitc_study.WARMUP, steps=fitc_study.STEPS) -> dict:
@@ -288,16 +294,7 @@ def vi(device, restarts=8) -> dict:
         lambda: sharded_vi_train(m, mesh, nits=vi_study.NITS, lr=vi_study.LR)))
     train_shapes = by_shape()
     neg_elbo, theta0, n = make_neg_elbo(m)
-    theta = theta0.clone().requires_grad_()
-    opt = torch.optim.Adam([theta], lr=vi_study.LR, eps=1e-8)
-    trace = []
-    for _ in range(vi_study.NITS):
-        opt.zero_grad(set_to_none=True)
-        val = neg_elbo(theta)
-        val.backward()
-        opt.step()
-        trace.append(-val.detach())
-    rep = torch.stack(trace).double().cpu().numpy()
+    rep = (-adam(neg_elbo, theta0, vi_study.NITS, vi_study.LR)[1]).double().cpu().numpy()
     tr = res.elbo_trace.double().cpu().numpy()
     q = gp.vi(m, nits=vi_study.NITS, method="adam", lr=vi_study.LR)
     (rv, ms_r), n_restarts = launches(lambda: vi_study._events_ms(lambda: sharded_vi(

@@ -16,8 +16,10 @@ On the card it prints:
   by direct differences);
 - the fit through `vi`, its whole time (the process's first fit, then the
   same fit again) and its launches (1 gram, no VJP);
-- ms per Adam step: the median of STEPS steps timed one by one by CUDA
-  events after WARMUP steps, and one step's host enqueue;
+- an Adam step (`inference/vi.adam_step`) from the fit's end, through its
+  CUDA graph and eager (`graphs.eager()`): the median of STEPS steps timed
+  one by one by CUDA events after WARMUP steps, one step's host enqueue
+  and its device-busy time (torch.profiler);
 - the ELBO before and after, the rate exp(m + v / 2)'s correlation with
   the counts;
 - the negative ELBO's value and gradient at theta0 and at the fit, f32 on
@@ -52,6 +54,7 @@ import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.inference import vi as vi_mod
 from gaussianprocesses_jl_tpu_torch.models.gpa import gpa_nugget
 from gaussianprocesses_jl_tpu_torch.ops import distance
+from gaussianprocesses_jl_tpu_torch.utils import graphs
 
 __all__ = ["N", "NITS", "LR", "WARMUP", "STEPS", "F32_NUGGET", "config3_data", "config3_model",
            "value_and_grad", "predictives", "factor_ok", "gap", "run", "f32_gap"]
@@ -143,6 +146,7 @@ def run(device) -> dict:
     """The fit and its checks' numbers (no thresholds here: chip_smoke holds
     them)."""
     from gaussianprocesses_jl_tpu_torch.perf.gram_study import enqueue_ms, launches
+    from gaussianprocesses_jl_tpu_torch.utils.profiling import device_profile
 
     m = config3_model(device)
     setup_ms = []
@@ -160,19 +164,22 @@ def run(device) -> dict:
         fit_ms.append(ms)
     theta_fit = torch.cat([Q.m, 0.5 * torch.log(Q.v)])
 
-    # the fit's step alone: Adam on the same objective, from the fit's end
-    theta = theta_fit.clone().requires_grad_()
-    opt = torch.optim.Adam([theta], lr=LR, eps=1e-8)
+    # the fit's step alone, from the fit's end: its CUDA graph, and eager
+    step = {}
+    for label, way in (("graph", contextlib.nullcontext), ("eager", graphs.eager)):
+        state = [vi_mod.adam_init(theta_fit)]
 
-    def one_step():
-        opt.zero_grad(set_to_none=True)
-        neg_elbo(theta).backward()
-        opt.step()
+        def one_step():
+            with way():
+                state[0] = vi_mod.adam_step(neg_elbo, state[0], LR)[0]
 
-    for _ in range(WARMUP):
-        one_step()
-    step_ms = [_events_ms(one_step)[1] for _ in range(STEPS)]
-    step_enqueue = enqueue_ms(one_step, reps=10)
+        for _ in range(WARMUP):
+            one_step()
+        times = [_events_ms(one_step)[1] for _ in range(STEPS)]
+        busy, kernels, _ = device_profile(one_step, reps=3)
+        step[label] = {"event_ms": statistics.median(times), "event_ms_all": times,
+                       "enqueue_ms": enqueue_ms(one_step, reps=10),
+                       "busy_ms": busy if kernels else None}
 
     elbo1 = float(gp.elbo(m, Q.m, Q.v))
     rate = torch.exp(Q.m + 0.5 * Q.v).cpu().numpy()
@@ -210,7 +217,7 @@ def run(device) -> dict:
     out = {"n": N, "nits": NITS, "elbo0": elbo0, "elbo": elbo1, "factor_ok": ok_card,
            "cpu_f32_factor_ok": ok_cpu, "cpu_f32_factor_ok_direct": ok_cpu_direct,
            "setup_ms": setup_ms, "fit_ms": fit_ms,
-           "step_ms": statistics.median(step_ms), "step_ms_all": step_ms, "step_enqueue_ms": step_enqueue,
+           "step_ms": step["graph"]["event_ms"], "step": step,
            "fit_launches": fit_launches, "objective_launches": obj_launches,
            "predict_launches": n_pred, "rate_corr": corr, "objective": objective,
            "predictive": predictive}
@@ -218,8 +225,10 @@ def run(device) -> dict:
           f"(f32 factor held: {ok_card}, on the CPU {ok_cpu}, {ok_cpu_direct} by direct "
           f"differences); elbo {elbo0:.2f} -> "
           f"{elbo1:.2f} in {NITS} Adam steps, fit {fit_ms[0]:.1f} ms (again {fit_ms[1]:.1f} "
-          f"ms); step {out['step_ms']:.4f} ms (median of {STEPS} after {WARMUP}), enqueue "
-          f"{step_enqueue:.4f} ms; launches: fit {fit_launches}, objectives {obj_launches}, "
+          f"ms); an Adam step (median of {STEPS} after {WARMUP}): " + ", ".join(
+              f"{k} {v['event_ms']:.4f} ms events, {v['enqueue_ms']:.4f} ms enqueue, "
+              f"{v['busy_ms']} ms busy" for k, v in step.items())
+          + f"; launches: fit {fit_launches}, objectives {obj_launches}, "
           f"predictives {n_pred}; rate corr {corr:.3f}", flush=True)
     for at, row in objective.items():
         print(f"  neg_elbo at {at}: " + ", ".join(
@@ -246,13 +255,7 @@ def f32_gap() -> dict:
     perm = np.random.RandomState(5).permutation(N)
     m64, p64 = config3_model("cpu", np.float64), config3_model("cpu", np.float64, perm)
     neg_elbo, theta0, _ = vi_mod.make_neg_elbo(m64, F32_NUGGET)
-    theta = theta0.clone().requires_grad_()
-    opt = torch.optim.Adam([theta], lr=LR, eps=1e-8)
-    for _ in range(NITS):
-        opt.zero_grad(set_to_none=True)
-        neg_elbo(theta).backward()
-        opt.step()
-    theta = theta.detach()
+    theta = vi_mod.adam(neg_elbo, theta0, NITS, LR)[0]
     Q = vi_mod.Approx(m=theta[:N], v=torch.exp(2.0 * theta[N:]))
     pp = torch.as_tensor(np.concatenate([perm, N + perm]))
     inv = np.argsort(perm)

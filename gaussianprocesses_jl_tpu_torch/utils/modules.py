@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-__all__ = ["module", "replace", "Module"]
+__all__ = ["module", "replace", "Module", "asarray_fields"]
 
 
 def module(*, static=()):
@@ -64,6 +64,11 @@ def _module_repr(self) -> str:
 
 
 replace = dataclasses.replace
+
+
+def asarray_fields(**kwargs) -> dict:
+    """Constructor arguments as float64 tensors (for factory functions)."""
+    return {k: torch.as_tensor(v, dtype=torch.float64) for k, v in kwargs.items()}
 
 
 class Module:

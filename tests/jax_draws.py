@@ -155,9 +155,14 @@ class Replay(RandomStream):
         self._rows = self._shrinks.pop(0)
         return tuple(self._t(a, like) for a in self._starts.pop(0))
 
-    def ess_shrink(self, C, like):
-        self._round += 1
-        return self._t(self._rows[:, self._round - 1], like)
+    def ess_shrink_block(self, R, C, like):
+        """Rounds [r, r + R) of the chains' shrink uniforms as (R, C); the
+        rounds past JAX's last (`max_shrink`) are 0.5, which no chain reads:
+        a chain is masked once it has had max_shrink rounds."""
+        rows = self._rows[:, self._round:self._round + R]
+        self._round += R
+        pad = np.full((rows.shape[0], R - rows.shape[1]), 0.5)
+        return self._t(np.concatenate([rows, pad], axis=1).T, like)
 
     def exhausted(self):
         return not (self._hmc or self._starts or self._normal)

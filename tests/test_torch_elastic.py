@@ -58,6 +58,27 @@ def test_every_append_matches_jax(case):
         _close(got.numpy(), ref)
 
 
+def test_the_padded_factor_matches_jax():
+    """The whole padded buffer, capacity by capacity, after each of six
+    appends of 4 (capacity 12, stepsize 8: the fourth grows to 20 and
+    rebuilds, the others extend at their offset): JAX's padded factor, the
+    identity past n included, rtol 1e-10."""
+    rng = np.random.RandomState(2)
+    X = rng.randn(24, 3)
+    y = np.cos(X[:, 1]) + 0.1 * rng.randn(24)
+    ej = JElastic(3, kernel=gj.SE(np.array([0.2, -0.1, 0.0]), 0.1), lognoise=-1.5,
+                  capacity=12, stepsize=8)
+    et = ElasticGPE(3, kernel=gt.SE(np.array([0.2, -0.1, 0.0]), 0.1), lognoise=-1.5,
+                    capacity=12, stepsize=8, **F64)
+    for i in range(0, 24, 4):
+        ej.append(X[i:i + 4], y[i:i + 4])
+        et.append(X[i:i + 4], y[i:i + 4])
+        assert et._L.shape == ej._L.shape
+        _close(et._L.numpy(), ej._L)
+        n = et.nobs
+        assert torch.equal(et._L[n:, n:], torch.eye(et.capacity - n, dtype=torch.float64))
+
+
 def test_capacity_grows_by_steps():
     """Blocks of 5 into capacity 8, stepsize 8: 30 points end at capacity 32,
     as in the JAX package, with the mll of a fresh GPE."""

@@ -14,7 +14,11 @@ A CUDA graph cannot be captured here, so three things are checked:
   re-runs its kernels on them. Its keys (a new shape or structure captures
   anew, new values replay), its copies in and out, its launch counts, the
   graphs' lifetime (with their model, the last `PER_OWNER` an owner) and
-  the pool's, and the refusal of a collective inside a capture.
+  the pool's, and the refusal of a collective inside a capture; and the
+  owners of the later paths: a fit's objective (VI's Adam step), the
+  elastic model (one graph a capacity and block size), the model's
+  cross-validation graphs (a fold set of the same padded shape replays),
+  the elliptical-slice sampler's two graphs.
 """
 import dataclasses
 import gc
@@ -40,6 +44,13 @@ from gaussianprocesses_jl_tpu_torch.utils import graphs
 from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
 
 from host_reads import checked_run
+from gaussianprocesses_jl_tpu_torch.inference import crossvalidation as cv
+from gaussianprocesses_jl_tpu_torch.inference.ess import ess
+from gaussianprocesses_jl_tpu_torch.inference.vi import make_neg_elbo
+from gaussianprocesses_jl_tpu_torch.models.elastic import ElasticGPE
+from gaussianprocesses_jl_tpu_torch.parallel.chains import sharded_ess
+from gaussianprocesses_jl_tpu_torch.perf.fitc_study import FitcAdam
+from gaussianprocesses_jl_tpu_torch.perf.parallel_study import ShardedFitcAdam
 
 
 def _gpe(n=30, seed=0, kernel=None):
@@ -96,7 +107,69 @@ def _split_run(eager, n_iter=1, m=None):
     return res.samples, res.final_target, res.accept_rate_a, res.accept_rate_b
 
 
-@pytest.mark.parametrize("case", ["headline", "gpa", "hmc", "split"])
+def _ess_run(rounds=2, sharded=False):
+    m = _gpe(n=20)
+    ll, x0, _, _ = m.make_logprob(include_priors=False)
+    th = x0 + 0.1 * torch.as_tensor(np.random.RandomState(4).randn(3, x0.numel()))
+    mu, sigma = np.zeros(x0.numel()), np.full(x0.numel(), 2.0)
+    if sharded:
+        r = sharded_ess(ll, th, mu, sigma, 5, make_mesh(device="cpu"), n_iter=3, rounds=rounds)
+    else:
+        r = ess(ll, th, mu, sigma, torch.Generator().manual_seed(3), n_iter=3, rounds=rounds)
+    return r.samples, r.final_loglik, r.mean_proposals
+
+
+def _vi_run(method="adam"):
+    m = _gpa(n=12)
+    Q = gt.vi(m, nits=4, method=method)
+    return Q.m, Q.v
+
+
+def _elastic_run():
+    rng = np.random.RandomState(8)
+    X, y = rng.randn(20, 2), rng.randn(20)
+    m = ElasticGPE(2, kernel=gt.SE(0.1, 0.0), lognoise=-1.0, capacity=12, stepsize=8,
+                   device="cpu", dtype=torch.float64)
+    out = []
+    for i in range(0, 20, 4):
+        m.append(X[i:i + 4], y[i:i + 4])
+        out.append(m._L.clone())
+    return out
+
+
+FOLDS = [[0, 3, 4], [1, 2], [5, 6, 7, 8, 9]]
+CV_CALLS = {
+    "predict_LOO": lambda m: list(cv.predict_LOO(m)),
+    "logp_LOO": lambda m: [cv.logp_LOO(m)],
+    "dlogp_LOO": lambda m: [cv.dlogp_LOO(m, noise=False)],
+    "predict_CVfold": lambda m: [t for mv in cv.predict_CVfold(m, FOLDS) for t in mv],
+    "logp_CVfold": lambda m: [cv.logp_CVfold(m, FOLDS)],
+    "dlogp_CVfold": lambda m: [cv.dlogp_CVfold(m, FOLDS)],
+}
+
+
+def _predict_run(kind):
+    xs = np.random.RandomState(9).randn(7, 3 if kind == "gpe" else 2)
+    if kind == "gpe":
+        return list(_gpe().predict_f(xs)) + list(_gpe().predict_f(xs, full_cov=True))
+    m = _gpa()
+    m.set_params(np.linspace(-0.5, 0.5, m.num_params()))
+    return list(m.predict_f(xs)) + list(m.predict_f(xs, full_cov=True))
+
+
+def _fitc_run(sharded=False):
+    rng = np.random.RandomState(10)
+    X = rng.randn(40, 2)
+    y = np.sin(X[:, 0]) + 0.1 * rng.randn(40)
+    model = gt.FITC(X, X[::5].copy(), y, kernel=gt.SE(0.0, 0.0), lognoise=-1.0, device="cpu")
+    trainer = (ShardedFitcAdam(model, make_mesh({"data": 1}, device="cpu")) if sharded
+               else FitcAdam(model))
+    losses = [torch.tensor(trainer.step()) for _ in range(3)]
+    return [*losses, *trainer.state]
+
+
+@pytest.mark.parametrize("case", ["headline", "gpa", "hmc", "split", "ess", "vi", "elastic",
+                                  "cv", "fitc"])
 def test_cpu_path_is_the_eager_function(case):
     """On CPU tensors the layer calls the function itself: the same bits as
     inside `graphs.eager()`, and for the targets as the plain autograd of
@@ -112,13 +185,28 @@ def test_cpu_path_is_the_eager_function(case):
         _equal(m.target_and_dtarget(), _autograd(m, gt.models.gpa.gpa_target))
     elif case == "hmc":
         _equal(_hmc_run(False), _hmc_run(True))
-    else:
+    elif case == "split":
         _equal(_split_run(False), _split_run(True))
+    elif case == "ess":
+        _equal(_ess_run(), eagerly(_ess_run)())
+    elif case == "vi":
+        _equal(_vi_run(), eagerly(_vi_run)())
+    elif case == "elastic":
+        _equal(_elastic_run(), eagerly(_elastic_run)())
+    elif case == "cv":
+        for call in CV_CALLS.values():
+            _equal(call(_gpe(n=10)), eagerly(call)(_gpe(n=10)))
+    else:
+        _equal(_fitc_run(), eagerly(_fitc_run)())
 
 
 @pytest.mark.parametrize("case", ["headline", "headline_n300", "fix_and_mask", "gpa",
                                   "objective", "hmc", "split", "sharded_hmc",
-                                  "sharded_split_hmc", "distributed", "ambient_hmc"])
+                                  "sharded_split_hmc", "distributed", "ambient_hmc",
+                                  "ess", "sharded_ess", "vi_adam", "vi_lbfgs", "elastic",
+                                  *(f"cv_{k}" for k in CV_CALLS), "predict_f_gpe",
+                                  "predict_f_gpa", "fitc_step", "sharded_fitc_step",
+                                  "sharded_vi", "sharded_vi_train"])
 def test_capture_regions_read_nothing_from_the_host(case, monkeypatch):
     """Each region the layer captures runs with host reads refused; the
     regions run (a count) and give the unchecked run's bits. At n = 300 the
@@ -130,6 +218,25 @@ def test_capture_regions_read_nothing_from_the_host(case, monkeypatch):
         return checked_run(owner, fn, *args)
 
     def run():
+        if case in ("ess", "sharded_ess"):
+            return _ess_run(sharded=case == "sharded_ess")
+        if case.startswith("vi_"):
+            return _vi_run("adam" if case == "vi_adam" else "lbfgs")
+        if case == "elastic":
+            return _elastic_run()
+        if case.startswith("cv_"):
+            return CV_CALLS[case[3:]](_gpe(n=10))
+        if case.startswith("predict_f"):
+            return _predict_run(case.split("_")[-1])
+        if case == "sharded_vi":
+            r = gt.sharded_vi(_gpa(n=12), make_mesh({"chains": 1}, device="cpu"), restarts=2,
+                              nits=3)
+            return r.approx.m, r.approx.v, r.elbos
+        if case == "sharded_vi_train":
+            r = gt.sharded_vi_train(_gpa(n=12), make_mesh({"data": 1}, device="cpu"), nits=3)
+            return r.approx.m, r.approx.v, r.elbo_trace
+        if case.endswith("fitc_step"):
+            return _fitc_run(sharded=case.startswith("sharded"))
         if case == "headline_n300":
             return _gpe(n=300).target_and_dtarget()
         if case == "distributed":
@@ -382,3 +489,53 @@ def test_a_collective_is_refused_inside_a_capture(emulated):
     with pytest.raises(Exception) as eager:  # no process group: gloo is not set up here
         eagerly(graphs.run)(x, lambda t: collectives.allreduce_(t, two, "j"), x)
     assert "cannot be captured" not in str(eager.value)
+
+
+def test_emulated_later_paths_keep_their_graphs(emulated):
+    """Through emulated graphs: VI's Adam step is captured once for the
+    fit's objective and replayed for every step; the elastic model keeps one
+    append graph for each (capacity, block size), whatever n; a second fold
+    set of the same padded shape replays the model's fold graphs, one of
+    another shape captures anew; the sampler keeps a start and a shrink
+    graph for its log likelihood. Each gives the eager bits."""
+    m = _gpa(n=12)
+    neg_elbo, theta0, _ = make_neg_elbo(m)
+    calls = []
+
+    def counted(theta):
+        calls.append(1)
+        return neg_elbo(theta)
+
+    theta, _ = gt.inference.vi.adam(counted, theta0, 5, 0.05)
+    assert _kept(counted) == 1 and len(calls) == 2 + 5  # warm-up, capture, 5 replays
+    assert torch.equal(theta, eagerly(gt.inference.vi.adam)(neg_elbo, theta0, 5, 0.05)[0])
+
+    _equal(_elastic_run(), eagerly(_elastic_run)())
+    rng = np.random.RandomState(8)
+    e = ElasticGPE(2, kernel=gt.SE(0.1, 0.0), lognoise=-1.0, capacity=16, stepsize=8,
+                   device="cpu", dtype=torch.float64)
+    for i in range(5):  # n = 4, 8, 12, 16: three extensions in one bucket
+        e.append(rng.randn(4, 2), rng.randn(4))
+    assert _kept(e) == 1
+    e.append(rng.randn(3, 2), rng.randn(3))  # a new capacity: a rebuild, no graph
+    e.append(rng.randn(3, 2), rng.randn(3))  # a new (capacity, k)
+    assert _kept(e) == 2
+
+    g = _gpe(n=10)
+    for call in CV_CALLS.values():
+        _equal(call(g), eagerly(call)(g))
+    kept = _kept(g)
+    other = [[9, 8, 7], [6, 5], [4, 3, 2, 1, 0]]  # the same padded shape (3, 5)
+    _equal([cv.logp_CVfold(g, other)], [eagerly(cv.logp_CVfold)(g, other)])
+    assert _kept(g) == kept
+    cv.logp_CVfold(g, [[0, 1], [2, 3]])
+    assert _kept(g) == kept + 1
+
+    m = _gpe(n=20)
+    ll, x0, _, _ = m.make_logprob(include_priors=False)
+    th = x0 + 0.1 * torch.as_tensor(np.random.RandomState(4).randn(3, x0.numel()))
+    args = (ll, th, np.zeros(x0.numel()), np.full(x0.numel(), 2.0))
+    r = ess(*args, torch.Generator().manual_seed(3), n_iter=3, rounds=1)
+    e_ = eagerly(ess)(*args, torch.Generator().manual_seed(3), n_iter=3, rounds=1)
+    _equal((r.samples, r.final_loglik), (e_.samples, e_.final_loglik))
+    assert _kept(ll) == 2

@@ -213,6 +213,18 @@ def test_chains_x_j_over_four_processes(ranks):
         assert tuple(got["pod"][:2]) == (2, 2)
 
 
+@pytest.mark.parametrize("P", [2, 4])
+def test_sharded_ess_over_processes_gives_the_bits_of_one(ranks, P):
+    """sharded_ess over 'chains' of 2 and 4 processes, shrink rounds in
+    blocks of 2 (a process runs blocks while its own chains shrink): the
+    bits of one process's run, on every rank."""
+    ref = chains.sharded_ess(*R.ess_problem(), R.ESS_SEED, gt.make_mesh(device="cpu"),
+                             **R.ESS_KW)
+    for got in ranks:
+        for k in ("samples", "final_loglik", "mean_proposals"):
+            np.testing.assert_array_equal(got[f"ess_P{P}_{k}"], getattr(ref, k).numpy())
+
+
 # The traffic of each path of perf/comm_model.py over 4 processes, f32, as
 # parallel/collectives.py counts it (bytes of the reduced tensor, the
 # gathered output, the broadcast tensor, the shifted block). Three follow

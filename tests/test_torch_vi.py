@@ -3,8 +3,9 @@ package on the same numpy inputs made from a seed, in f64.
 
 Tolerances, stated at each assertion: the ELBO and the negative ELBO's value
 rtol 1e-10 and gradient rtol 1e-9 (atol 1e-12), the same algebra on the same
-factor; three Adam steps iterate for iterate at rtol 1e-10 (torch.optim.Adam
-computes optax's update, m_hat / (sqrt(v_hat) + 1e-8)); the predictive atol
+factor; three Adam steps iterate for iterate at rtol 1e-10 (`adam_update`
+is optax's `adam` written out), and the update alone against optax's step
+for step at 1e-10; the predictive atol
 1e-9. The L-BFGS-B optimum: the same scipy run on values equal to rounding,
 but the ELBO is flat in log v, so rounding steers the two runs apart and
 scipy's ftol stops each at its own point (774 and 824 iterations here): the
@@ -76,6 +77,41 @@ def test_three_adam_steps_iterate_for_iterate():
         n = Q.m.shape[0]
         np.testing.assert_allclose(Q.m.numpy(), ref[k - 1][:n], rtol=1e-10, atol=1e-13)
         np.testing.assert_allclose(Q.v.numpy(), np.exp(2 * ref[k - 1][n:]), rtol=1e-10)
+
+
+def test_adam_update_matches_optax_step_for_step():
+    """`adam_update` and `adam` against `optax.adam(0.05)` on a quadratic
+    with gradients of mixed scales over 30 steps: every iterate, moment and
+    step count at rtol 1e-10, f64."""
+    A = np.diag(np.logspace(-2, 2, 6))
+    b = np.random.RandomState(8).randn(6)
+
+    def fj(x):
+        return 0.5 * x @ jnp.asarray(A) @ x - jnp.asarray(b) @ x
+
+    def ft(x):
+        return 0.5 * x @ torch.as_tensor(A) @ x - torch.as_tensor(b) @ x
+
+    opt = optax.adam(0.05)
+    xj = jnp.asarray(np.linspace(-1.0, 1.0, 6))
+    state = opt.init(xj)
+    xt = torch.as_tensor(np.asarray(xj))
+    m, v, t = torch.zeros(6, dtype=torch.float64), torch.zeros(6, dtype=torch.float64), \
+        torch.zeros((), dtype=torch.float64)
+    iterates = []
+    for _ in range(30):
+        upd, state = opt.update(jax.grad(fj)(xj), state, xj)
+        xj = optax.apply_updates(xj, upd)
+        _, g = tvi._value_and_grad(ft, xt)
+        xt, m, v, t = tvi.adam_update(xt, g, m, v, t, 0.05)
+        np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-10, atol=1e-14)
+        np.testing.assert_allclose(m.numpy(), np.asarray(state[0].mu), rtol=1e-10, atol=1e-14)
+        np.testing.assert_allclose(v.numpy(), np.asarray(state[0].nu), rtol=1e-10, atol=1e-14)
+        assert float(t) == int(state[0].count)
+        iterates.append(xt)
+    x_fit, values = tvi.adam(ft, torch.as_tensor(np.linspace(-1.0, 1.0, 6)), 30, 0.05)
+    assert torch.equal(x_fit, iterates[-1]) and values.shape == (30,)
+    assert torch.equal(values[1], ft(iterates[0]))
 
 
 def test_lbfgs_optimum_matches_jax_and_raises_the_elbo():

@@ -16,13 +16,15 @@ runs, f64:
     sharded_vi_train;
   * on make_pod_mesh({'j': 2}) (axes ('chains', 'j') of sizes (2, 2)):
     sharded_hmc over AmbientFullCovariance;
+  * sharded_ess over 'chains' of make_mesh() (P = 4) and of the pod mesh
+    (P = 2);
   * the bytes and calls of the collectives on each path of
     `perf/comm_model.py` (`measure_paths`, its own meshes of size 4);
   * the regions the CUDA graph layer would capture (`utils/graphs.py`),
     run with host reads refused (tests/host_reads.py): the dense GPE and
     GPA targets at P = 4 ('j' of make_mesh) and P = 2 ('j' of the pod
-    mesh), and sharded_hmc over AmbientFullCovariance at P = 2, each
-    beside its unchecked run;
+    mesh), sharded_hmc over AmbientFullCovariance at P = 2 and sharded_ess
+    at P = 4 and 2, each beside its unchecked run;
 and saves what this rank computed to OUT_DIR/rank{RANK}.npz.
 """
 import os
@@ -50,6 +52,7 @@ from host_reads import checked_run  # noqa: E402
 N_DENSE, N_GPA, N_RING, N_FITC, N_VI, N_HMC = 64, 64, 64, 1600, 48, 32
 HMC_KW = dict(n_iter=6, n_warmup=4, eps0=0.05, Lmin=2, Lmax=4)
 HMC_CHAINS, HMC_SEED = 4, 3
+ESS_CHAINS, ESS_SEED, ESS_KW = 8, 11, dict(n_iter=3, rounds=2)
 VI_STEPS = 20
 
 
@@ -179,6 +182,23 @@ def hmc_problem(covstrat=None):
                                                                                x0.numel()))
 
 
+def ess_problem():
+    """(loglik, theta0 (C, 3), prior mu, prior sigma) of the sharded_ess
+    runs: configuration #5's GPE counterpart at n = 12."""
+    from gaussianprocesses_jl_tpu_torch.perf import student_t_study as st
+
+    loglik, x0, _, _ = st.config5_gpe("cpu", np.float64, 12).make_logprob(include_priors=False)
+    theta0 = x0 + 0.05 * torch.as_tensor(np.random.RandomState(6).randn(ESS_CHAINS, 3))
+    return loglik, theta0, st.PRIOR_MU, st.PRIOR_SIGMA
+
+
+def ess_run(m):
+    """sharded_ess of `ess_problem` over m's 'chains' axis: [samples, final
+    log likelihoods, mean proposals]."""
+    r = chains.sharded_ess(*ess_problem(), ESS_SEED, m, **ESS_KW)
+    return [r.samples, r.final_loglik, r.mean_proposals]
+
+
 def collective_grads(m, axis):
     """The gradients of replicated losses through each differentiable
     collective on this process: copy (the sum of the shares, through a
@@ -199,18 +219,20 @@ def collective_grads(m, axis):
             for k, (loss, wrt) in losses.items()}
 
 
-HOST_READ_CASES = ("dense_P4", "gpa_P4", "dense_P2", "ambient_hmc_P2")
+HOST_READ_CASES = ("dense_P4", "gpa_P4", "dense_P2", "ambient_hmc_P2", "ess_P4", "ess_P2")
 
 
 def host_read_case(case, mj, pod):
     """The numbers of one case, every graph region run as the layer calls it."""
+    if case.startswith("ess"):
+        return ess_run(mesh.make_mesh(device="cpu") if case == "ess_P4" else pod)
     if case == "ambient_hmc_P2":
         logprob, theta0 = hmc_problem(AmbientFullCovariance(pod, B=4))
         h = chains.sharded_hmc(logprob, theta0, HMC_SEED, pod, n_iter=2, n_warmup=1, eps0=0.05,
                                Lmin=2, Lmax=3)
         return [h.samples, h.final_target]
-    mesh, B = (mj, 4) if case.endswith("P4") else (pod, 4)
-    cs = gp.DistributedFullCovariance(mesh, "j", B)
+    m_j = mj if case.endswith("P4") else pod
+    cs = gp.DistributedFullCovariance(m_j, "j", 4)
     m = dense_model(cs) if case.startswith("dense") else gpa_model(cs)
     return list(m.target_and_dtarget())
 
@@ -279,6 +301,9 @@ def main(rank, world, init_file, out_dir):
         out["hmc_samples"], out["hmc_final_target"] = h.samples.numpy(), h.final_target.numpy()
         out["pod"] = np.asarray([pod.shape["chains"], pod.shape["j"], pod.coords["chains"],
                                  pod.coords["j"]])
+        for P, m in ((4, mesh.make_mesh(device="cpu")), (2, pod)):
+            for k, t in zip(("samples", "final_loglik", "mean_proposals"), ess_run(m)):
+                out[f"ess_P{P}_{k}"] = t.numpy()
         out["comm"] = np.asarray(json.dumps(comm_model.measure_paths(world)))
         out.update(host_read_checks(mj, pod))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)

@@ -87,7 +87,12 @@ Phases, each of which exits non-zero on the first failure:
      launches), logp_CVfold and dlogp_CVfold over 10 equal folds, f32 and
      f64 on the card against f64 on the CPU;
  22. optimize(method="optax", maxiter=10) on the headline: finite, no lower
-     than the start, 1 + 1 launches an evaluation;
+     than the start, 1 + 1 launches an evaluation; then optax's L-BFGS
+     (`inference/lbfgs.py`) through its CUDA graphs against
+     `graphs.eager()` on the headline (10 iterations) and configuration
+     #2's GPA (5): the same iterates and line-search trial counts, 1 + 1
+     launches an evaluation each way, ms an iteration by CUDA events, host
+     and device busy, evaluations and host reads an iteration;
  23. the notebook anchors (the examples' `run`, thresholds in
      perf/anchors.py): robust regression, Poisson MCMC
      against VI, Mauna Loa by both optimizers, the sparse golden mlls and
@@ -145,10 +150,10 @@ Phases, each of which exits non-zero on the first failure:
      one FITC step at N = 100 000 (`phase_graph_pairs`: events, enqueue and
      busy ms each way, equal bits or within `GRAPH_BARS`); a dropped
      model's graph gives its memory back.
-On the card the targets, the samplers, VI's steps, cross-validation, the
-predictives and the elastic append run through their CUDA graphs
-(`utils/graphs.py`) in every phase unless it asks for eager: phases 4-8,
-13-16, 20-21, 24-25 and 27-30 among them. Every gram and VJP launch of
+On the card the targets, the samplers, VI's steps, optax's L-BFGS,
+cross-validation, the predictives and the elastic append run through
+their CUDA graphs (`utils/graphs.py`) in every phase unless it asks for
+eager: phases 4-8, 13-16, 20-22, 24-25 and 27-30 among them. Every gram and VJP launch of
 phases 27-31 and of phase 32's new pairs is kept (`captured_launches`;
 under a graph, its capture's warm-up) and replayed against the plain
 versions in f64.
@@ -182,7 +187,7 @@ import torch
 import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.examples import (classification, mauna_loa, poisson_regression,
                                                      regression, robust_regression)
-from gaussianprocesses_jl_tpu_torch.inference import ess as ess_mod, hmc
+from gaussianprocesses_jl_tpu_torch.inference import ess as ess_mod, hmc, lbfgs
 from gaussianprocesses_jl_tpu_torch.inference.hmc import batched_value_and_grad
 from gaussianprocesses_jl_tpu_torch.inference.vi import adam_init, adam_step, make_neg_elbo
 from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels as chol_op
@@ -196,8 +201,9 @@ from gaussianprocesses_jl_tpu_torch.ops.linalg import (
 from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
 from gaussianprocesses_jl_tpu_torch.parallel import chains
 from gaussianprocesses_jl_tpu_torch.perf import (anchors, bench_study, elastic_study, fitc_study,
-                                                 gpa_study, gram_study, parallel_study,
-                                                 single_parts, student_t_study, vi_study)
+                                                 gpa_study, gram_study, lbfgs_study,
+                                                 parallel_study, single_parts, student_t_study,
+                                                 vi_study)
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
     HBM_BYTES_PER_S,
@@ -1473,13 +1479,63 @@ def phase_cv(dev) -> tuple:
     return tuple(total)
 
 
+def optax_pair(name, model, iters, bar) -> tuple:
+    """One graph-against-eager pair of phase 22 (`graph_pair`):
+    `lbfgs.minimize` on the model's objective from its start, `iters`
+    iterations, each way giving its iterates and its line-search trial
+    counts (equal bits, or the iterates within `bar`, and the same counts
+    each way), 1 + 1 launches an evaluation. Returns (the launches of both
+    ways, the pair's numbers with the ms, evaluations and host reads an
+    iteration)."""
+    vg, x0, _, _ = model.make_objective()
+    runs = []
+
+    def setup():
+        def call():
+            trace = []
+            res = lbfgs.minimize(vg, x0, iters, trace=trace)
+            runs.append(res)
+            return [*(x for x, _ in trace), res.x,
+                    torch.stack([step.search.count for _, step in trace])]
+        return call
+
+    out, res = graph_pair(name, setup, (bar,), phase=22)
+    if not torch.equal(res[0][-1], res[1][-1]):
+        fail(f"phase 22: {name}: trial counts {res[0][-1].tolist()} graphed, "
+             f"{res[1][-1].tolist()} eager")
+    r = runs[0]
+    out.update(n_iter=r.n_iter, counts=res[0][-1].tolist(), evaluations=r.evaluations / r.n_iter,
+               host_reads=r.host_reads / r.n_iter)
+    for label in ("graph", "eager"):
+        for k in ("event_ms", "enqueue_ms", "busy_ms"):
+            if out[f"{k}_{label}"] is not None:
+                out[f"{k}_{label}"] /= r.n_iter
+    print(f"  {name}: an iteration {out['event_ms_graph']:.4f} ms events, "
+          f"{out['enqueue_ms_graph']:.4f} ms host, {out['busy_ms_graph']} ms busy graphed; "
+          f"{out['event_ms_eager']:.4f} / {out['enqueue_ms_eager']:.4f} / "
+          f"{out['busy_ms_eager']} eager; {out['evaluations']:.2f} evaluations and "
+          f"{out['host_reads']:.2f} host reads an iteration, trial counts {out['counts']}",
+          flush=True)
+    evals = sum(1 + c for c in out["counts"])
+    if out["launches_graph"] != (evals, evals):
+        fail(f"phase 22: {name}: launches {out['launches_graph']} for {evals} evaluations")
+    return [2 * n for n in out["launches_graph"]], out
+
+
 def phase_optax(dev) -> tuple:
-    """Phase 22: optimize(method="optax", maxiter=10) on the headline in f32:
-    the target finite and no lower than at the start, and 1 + 1 launches for
-    each evaluation the loop and its line search made."""
+    """Phase 22: method='optax', optax's L-BFGS with its zoom line search
+    (`inference/lbfgs.py`), on the card:
+      * `optimize(method="optax", maxiter=10)` on the headline in f32: the
+        target finite and no lower than at the start, and 1 + 1 launches
+        for each evaluation the loop and its line search made;
+      * `optax_pair` on the headline (10 iterations) and on configuration
+        #2's GPA (n = 200 latents and 6 hyperparameters, 5 iterations):
+        graphed and eager, the same iterates and trial counts.
+    Returns (the launches of every run, the pairs' numbers)."""
     rng = np.random.RandomState(42)
     m = gp.GPE(rng.randn(N_HEAD, D).astype(np.float32), rng.randn(N_HEAD).astype(np.float32),
                gp.MeanZero(), gp.SE(0.0, 0.0), lognoise=-1.0, device=dev)
+    p0 = m.get_params().clone()
     t_start = float(m.target)
     t0 = time.perf_counter()
     res, n = launches(lambda: m.optimize(method="optax", maxiter=10))
@@ -1490,9 +1546,14 @@ def phase_optax(dev) -> tuple:
           f"{res.n_iter} iterations, {res.message}, {n[0]} gram and {n[1]} gram_vjp launches, "
           f"{secs:.3f} s")
     if not (np.isfinite(t_end) and t_end >= t_start and n == (evals, evals)):
-        fail("optimize(method='optax'): not finite, lower than the start, or not 1 + 1 "
+        fail("optimize(method='optax'): not finite, lower than at the start, or not 1 + 1 "
              "launches an evaluation")
-    return n
+    m.set_params(p0)
+    total, out = optax_pair(f"headline SE n={N_HEAD} f32", m, 10, GRAPH_BARS["headline"][0])
+    n = [a + b for a, b in zip(n, total)]
+    total, out["config2"] = optax_pair("configuration #2's GPA", gpa_study.config2_model(dev), 5,
+                                       GRAPH_BARS["sampler"][0])
+    return tuple(a + b for a, b in zip(n, total)), out
 
 
 # the anchors' sampler depths, cut to keep the script inside its time
@@ -1934,9 +1995,9 @@ def graph_gap(got, ref) -> float:
     return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
 
 
-def graph_pair(name, setup, bar, reps=10):
-    """One graph-against-eager pair of phase 32. `setup()` makes fresh state
-    and returns a zero-argument call whose result is a list of tensors; each
+def graph_pair(name, setup, bar, reps=10, phase=32):
+    """One graph-against-eager pair of phase 32 (or `phase`). `setup()` makes
+    fresh state and returns a zero-argument call whose result is a list of tensors; each
     way runs a call of its own setup once (outputs compared, launches
     counted from 0), then another setup's call is timed: CUDA-event ms,
     host enqueue ms and device-busy ms (torch.profiler; None where it saw
@@ -1960,7 +2021,7 @@ def graph_pair(name, setup, bar, reps=10):
               f"{r['busy_ms']} ms busy, launches {r['launches']}"
               for label, r in row.items()), flush=True)
     if row["graph"]["launches"] != row["eager"]["launches"] or max(gaps) > bar[0]:
-        fail(f"phase 32: {name}: launches {row['graph']['launches']} against "
+        fail(f"phase {phase}: {name}: launches {row['graph']['launches']} against "
              f"{row['eager']['launches']}, or gap {gaps} over {bar[0]}")
     return summary, [row[label]["out"] for label in row]
 
@@ -2373,8 +2434,9 @@ def main() -> int:
         print(f"phase {label}", flush=True)
         new_launches.append(fn())
         print(f"phase {label.split(':')[0]}: {time.perf_counter() - t0:.1f} s", flush=True)
-    (n_fitc10k, fitc, (n_fsa, fsa_errs), vi_out, n_cv, n_optax,
+    (n_fitc10k, fitc, (n_fsa, fsa_errs), vi_out, n_cv, (n_optax, optax_out),
      (anchor_rows, n_anchors, anchor_errs), config5, elastic, n_adapters) = new_launches
+    print("method='optax', graph against eager: " + json.dumps(optax_out))
 
     # 27-30. the distributed dense and sparse paths, every launch kept
     dist = {}

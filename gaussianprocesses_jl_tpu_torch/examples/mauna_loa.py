@@ -51,8 +51,9 @@ def model(device, dtype=np.float64):
 
 def run(device, dtype=np.float64, method: str = "lbfgs", maxiter: int = 200,
         verbose: bool = True) -> dict:
-    """The fit by `method` (L-BFGS-B, or Adam for "optax") from the
-    notebook's start, and the 2004+ forecast's rmse."""
+    """The fit by `optimize(method=method)` (scipy's L-BFGS-B for "lbfgs",
+    optax's L-BFGS for "optax") from the notebook's start, and the 2004+
+    forecast's rmse."""
     say = print if verbose else (lambda *a: None)
     year, co2 = load_data()
     m, train, ymean = model(device, dtype)

@@ -1,23 +1,29 @@
 """Type-II ML / MAP hyperparameter optimization (counterpart of
 `gaussianprocesses_jl_tpu/inference/optimize.py`).
 
-Two methods over the selected parameter blocks, both reading a non-finite
-target (failed Cholesky) as a loss of 1e100 with a zero gradient, so that
-the line search backs off without an exception:
+Two methods over the selected parameter blocks:
   * 'lbfgs' (default): scipy's L-BFGS-B on the host drives the model's
-    value and gradient on the model's device, with optional box bounds;
-  * 'optax' (the JAX package's on-device optax.lbfgs loop): a
-    `torch.optim.LBFGS` loop with a strong-Wolfe line search whose
-    parameters and gradient stay on the model's device; no bounds. It
-    stops when ||g|| < tol or at maxiter. Its iterates differ from optax's.
+    value and gradient on the model's device, with optional box bounds; a
+    non-finite target (failed Cholesky) reads as a loss of 1e100 with a
+    zero gradient, so that the line search backs off without an exception;
+  * 'optax' (the JAX package's on-device `optax.lbfgs()` loop): optax's
+    L-BFGS with its zoom line search (`inference/lbfgs.py`), iterate for
+    iterate; on the card each iteration replays CUDA graphs, with one host
+    read a block of line-search trials. No bounds. A non-finite value
+    reaches the line search as it is, as optax sees it. It stops after the
+    iteration whose ||g_k|| < tol, or at maxiter, and reports the value at
+    the last x_k and the point after its step; the message counts the
+    objective's evaluations (masked line-search trials included, each one
+    evaluation on the device).
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from . import lbfgs
 
 __all__ = ["optimize", "OptimizeResult"]
 
@@ -76,7 +82,7 @@ def optimize(gp, method: str = "lbfgs", maxiter: int = 200, tol: float = 1e-8,
     elif method == "optax":
         if bounds is not None:
             raise ValueError("bounds require method='lbfgs'")
-        res = _torch_lbfgs(vg, x0, maxiter, tol)
+        res = _optax_lbfgs(vg, x0, maxiter, tol)
     else:
         raise ValueError(f"unknown method {method!r}")
 
@@ -107,37 +113,9 @@ def _scipy_lbfgsb(vg, x0, bounds, maxiter, tol, verbose) -> OptimizeResult:
                           np.asarray(out.x), int(out.nit), str(out.message))
 
 
-def _torch_lbfgs(vg, x0, maxiter, tol) -> OptimizeResult:
-    """L-BFGS on the device: each iteration evaluates the value and gradient
-    at x_k, stops if ||g_k|| < tol, and otherwise takes one strong-Wolfe
-    step; like the JAX package's loop it reports the value at the last x_k
-    and returns the point after its step. The line search reads each value
-    on the host."""
-    x = x0.detach().clone().requires_grad_()
-    # one iteration a step() call; max_eval leaves the line search its 25
-    # evaluations (torch gives it max_eval minus the one at x_k); optax's
-    # memory of 10 pairs
-    opt = torch.optim.LBFGS([x], lr=1.0, max_iter=1, max_eval=26, tolerance_grad=0.0,
-                            tolerance_change=0.0, history_size=10,
-                            line_search_fn="strong_wolfe")
-    evals = []
-
-    def closure():
-        v, g = vg(x.detach())
-        v = float(v)
-        if not math.isfinite(v):
-            v, g = 1e100, torch.zeros_like(g)
-        x.grad = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        evals.append((v, x.grad))
-        return v
-
-    value, it, n_evals = math.inf, 0, 0
-    for it in range(maxiter):
-        evals.clear()
-        opt.step(closure)
-        n_evals += len(evals)
-        value, g = evals[0]  # at x_k, before the step
-        if float(torch.linalg.norm(g)) < tol:
-            break
-    return OptimizeResult(True, value, -value, x.detach().cpu().numpy(), it + 1,
-                          f"{n_evals} evaluations")
+def _optax_lbfgs(vg, x0, maxiter, tol) -> OptimizeResult:
+    """optax's L-BFGS as the JAX package's loop drives it (`lbfgs.minimize`)."""
+    r = lbfgs.minimize(vg, x0, maxiter, tol)
+    value = float(r.value)
+    return OptimizeResult(True, value, -value, r.x.cpu().numpy(), r.n_iter,
+                          f"{r.evaluations} evaluations")

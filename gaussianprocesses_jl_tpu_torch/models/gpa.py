@@ -131,6 +131,12 @@ def _gpa_value_and_grad(*args):
     return value_and_grad(gpa_target, *args)
 
 
+def _gpa_objective(*args):
+    """The optimizer's objective: -target and its gradient."""
+    t, g = value_and_grad(gpa_target, *args)
+    return -t, -g
+
+
 class GPA:
     """Latent GP with a non-Gaussian likelihood, for the samplers of
     `inference/` and the optimizer. `device` defaults to the CUDA device
@@ -322,15 +328,11 @@ class GPA:
 
     def make_objective(self, lik=True, domean=True, kern=True):
         """(vg, x0, embed, blocks), vg(sub) = (-logprob, its gradient) over
-        [v; selected blocks]: v is always free. One CUDA graph on the card."""
+        [v; selected blocks]: v is always free. One CUDA graph on the card (a
+        `graphs.Bound`)."""
         embed, x0, blocks = self._block_plumbing((lik, domean, kern))
-        args = (self.params.flat_params().detach(), (True, lik, domean, kern), self.params,
-                self.x, self.y, self.covstrat)
-
-        def vg(sub):
-            t, g = graphs.run(self, _gpa_value_and_grad, sub, *args)
-            return -t, -g
-
+        vg = graphs.Bound(self, _gpa_objective, self.params.flat_params().detach(),
+                          (True, lik, domean, kern), self.params, self.x, self.y, self.covstrat)
         return vg, x0, embed, blocks
 
     # -- prediction --------------------------------------------------------

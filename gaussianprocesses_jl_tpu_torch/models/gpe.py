@@ -132,6 +132,12 @@ def _gpe_value_and_grad(*args):
     return value_and_grad(gpe_target, *args)
 
 
+def _gpe_objective(*args):
+    """The optimizer's objective: -target and its gradient."""
+    t, g = value_and_grad(gpe_target, *args)
+    return -t, -g
+
+
 # ---------------------------------------------------------------------------
 # Stateful user-facing wrapper
 # ---------------------------------------------------------------------------
@@ -407,16 +413,12 @@ class GPE:
 
     def make_objective(self, noise=True, domean=True, kern=True):
         """(vg, x0, embed, blocks) where vg(sub) = (-logprob, its gradient)
-        over the selected blocks, one CUDA graph on the card."""
+        over the selected blocks, one CUDA graph on the card (a
+        `graphs.Bound`)."""
         flags = (noise, domean, kern)
         embed, x0, blocks = self._block_plumbing(flags)
-        args = (self.params.flat_params().detach(), flags, self.params, self.x, self.y,
-                self.covstrat)
-
-        def vg(sub):
-            t, g = graphs.run(self, _gpe_value_and_grad, sub, *args)
-            return -t, -g
-
+        vg = graphs.Bound(self, _gpe_objective, self.params.flat_params().detach(), flags,
+                          self.params, self.x, self.y, self.covstrat)
         return vg, x0, embed, blocks
 
     def optimize(self, **kwargs):

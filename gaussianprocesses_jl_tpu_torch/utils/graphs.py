@@ -20,11 +20,16 @@ same kernels, the port's own among them, with no Python between them.
     no fallback to eager.
 
 `args` may hold tensors, modules (`utils/modules.Module`: their tensor
-leaves are inputs, their types and static fields part of the key), tuples,
-lists and static Python values (None, bool, int, float, str: part of the
-key). Every tensor input is copied into the graph's static buffer before a
+leaves are inputs, their types and static fields part of the key), tuples
+(named ones too), lists and static Python values (None, bool, int, float,
+str: part of the key). Every tensor input is copied into the graph's static buffer before a
 replay; every tensor output is copied out after it, so nothing a caller
 keeps is overwritten by the next replay.
+
+`Bound(owner, fn, *args)` is x -> run(owner, fn, x, *args) with its
+parts readable: a model's objective, whose function a larger graph (the
+L-BFGS iteration of `inference/lbfgs.py`) calls inline, its arguments
+passed on as that graph's inputs.
 
 `owner` is the object whose lifetime bounds the graph's: the model whose
 target the graph computes, or the function whose closure the graph bakes
@@ -66,7 +71,7 @@ import torch
 
 from .modules import Module
 
-__all__ = ["run", "eager", "capturing", "clear", "PER_OWNER"]
+__all__ = ["run", "Bound", "eager", "capturing", "clear", "PER_OWNER"]
 
 PER_OWNER = 8  # graphs kept for one owner, the least recently replayed dropped first
 
@@ -153,7 +158,8 @@ def _unflatten(spec, it):
         return spec[1].with_tensors([next(it) for _ in range(spec[2])])
     if tag == "static":
         return spec[1]
-    return tag(_unflatten(s, it) for s in spec[1])
+    parts = [_unflatten(s, it) for s in spec[1]]
+    return tag(*parts) if hasattr(tag, "_fields") else tag(parts)
 
 
 def _counters() -> list:
@@ -305,6 +311,20 @@ def run(owner, fn: Callable, *args, static=()):
         graph = graphs[key] = _Graph(fn, leaves, spec, device)
     graphs.move_to_end(key)
     return graph(leaves)
+
+
+class Bound:
+    """x -> fn(x, *args) through the graph kept for `owner`: a model's
+    objective (`make_objective`). Its owner, function and arguments stay
+    readable, so a caller can hold the evaluation inside a graph of its own
+    (the L-BFGS step of `inference/lbfgs.py`) with the arguments as that
+    graph's inputs, not as constants baked into it."""
+
+    def __init__(self, owner, fn: Callable, *args):
+        self.owner, self.fn, self.args = owner, fn, args
+
+    def __call__(self, x):
+        return run(self.owner, self.fn, x, *self.args)
 
 
 def clear() -> None:

@@ -12,6 +12,8 @@ import gaussianprocesses_jl_tpu_torch as gt
 from gaussianprocesses_jl_tpu.models.gpa import gpa_target as j_target
 from gaussianprocesses_jl_tpu_torch.models.gpa import gpa_target as t_target
 
+from test_torch_gpe import _check_optax_iterates
+
 N, D = 30, 3
 LL = np.array([0.2, -0.1, 0.3])
 
@@ -143,6 +145,21 @@ def test_optimize_and_sample_params():
     assert float(mt.target) > before and res.target == pytest.approx(float(mt.target))
     draws = mt.sample_params(torch.Generator().manual_seed(0))
     assert draws.shape == (mt.num_params() - N,) and torch.isfinite(draws).all()
+
+
+def test_optax_iterates_match_jax():
+    """method='optax' on a GPA (Bernoulli, Matern 3/2 ARD, n = 30; the
+    latents and the hyperparameters free): the first 10 iterates, values
+    and stepsizes at rtol 1e-8 and equal line-search trial counts against
+    optax.lbfgs() as the JAX package drives it, then `optimize` in both
+    packages to the same parameters after 10 iterations (rtol 1e-8)."""
+    mj, mt = _models("bernoulli")
+    _check_optax_iterates(mj, mt, {})
+    rj = mj.optimize(method="optax", maxiter=10)
+    rt = mt.optimize(method="optax", maxiter=10)
+    assert rt.n_iter == rj.n_iter == 10 and rt.message.endswith(" evaluations")
+    np.testing.assert_allclose(rt.x, np.asarray(rj.x), rtol=1e-8)
+    np.testing.assert_allclose(float(mt.target), float(mj.target), rtol=1e-8)
 
 
 def test_rand_draws_have_the_predictive_moments():

@@ -13,7 +13,10 @@ import torch
 import gaussianprocesses_jl_tpu as gj
 import gaussianprocesses_jl_tpu_torch as gt
 from gaussianprocesses_jl_tpu.utils import priors as jpriors
+from gaussianprocesses_jl_tpu_torch.inference import lbfgs
 from gaussianprocesses_jl_tpu_torch.utils import priors as tpriors
+
+from test_torch_lbfgs import optax_rows
 
 
 def _flagship_data(n=256, d=4):
@@ -167,23 +170,44 @@ def test_optimize_rejects_unknown_arguments_and_optax():
 
 @pytest.mark.parametrize("flags", [{}, {"domean": False}])
 def test_optax_optimum_matches_jax(flags):
-    """method='optax' to convergence (||g|| < 1e-8 or 100 iterations) in
-    both packages: optax.lbfgs and the port's torch.optim.LBFGS loop take
-    different iterates, so the optimum is compared, not the path: the
-    target rtol 1e-8 and the parameters atol 1e-5 (the target is flat to
-    second order at its maximum). The model is _small without its Const
-    term, which MeanConst makes unidentifiable (its log variance runs off to
-    -inf)."""
+    """method='optax' in both packages: optax.lbfgs() as the JAX package's
+    loop drives it, and the port's copy of it (`inference/lbfgs.py`). The
+    first 10 iterates x_k, the values at them and the stepsizes at rtol
+    1e-8 (the gradients round differently, rtol 1e-8 above), with equal
+    line-search trial counts; then to convergence (||g|| < 1e-8 or 100
+    iterations) the optimum: the target rtol 1e-8 and the parameters atol
+    1e-5 (the target is flat to second order at its maximum). The model is
+    _small without its Const term, which MeanConst makes unidentifiable
+    (its log variance runs off to -inf)."""
     def make(g, X, y, **kw):
         return g.GPE(X, y, g.MeanConst(beta=np.array(0.1)), g.SE(0.3, 0.1), lognoise=-1.0,
                      **kw)
 
     mj, mt = _pair(make, _small_data)
+    _check_optax_iterates(mj, mt, flags)
     rj = mj.optimize(method="optax", maxiter=100, **flags)
     rt = mt.optimize(method="optax", maxiter=100, **flags)
     np.testing.assert_allclose(float(mt.target), float(mj.target), rtol=1e-8)
     np.testing.assert_allclose(rt.x, np.asarray(rj.x), atol=1e-5)
     np.testing.assert_allclose(mt.get_params().numpy(), np.asarray(mj.get_params()), atol=1e-5)
+
+
+def _check_optax_iterates(mj, mt, flags, iters=10, rtol=1e-8):
+    """The first `iters` iterations of method='optax' from the same start in
+    both packages: x_k, the value at x_k and the stepsize at rtol, the
+    line-search trial counts equal."""
+    vgj, x0j, _, _ = mj.make_objective(**flags)
+    vgt, x0t, _, _ = mt.make_objective(**flags)
+    rows, _, n = optax_rows(vgj, np.asarray(x0j), maxiter=iters)
+    trace = []
+    res = lbfgs.minimize(vgt, x0t, iters, 1e-8, trace=trace)
+    assert res.n_iter == n == iters
+    for ((xj, _), vj, (_, after)), (xt, step) in zip(rows, trace):
+        assert int(step.search.count) == int(after[2].info.num_linesearch_steps)
+        np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=rtol)
+        np.testing.assert_allclose(float(step.value), float(vj), rtol=rtol)
+        np.testing.assert_allclose(float(step.search.stepsize),
+                                   float(after[2].learning_rate), rtol=rtol)
 
 
 def test_parameter_blocks_priors_and_data_updates():

@@ -45,6 +45,7 @@ from gaussianprocesses_jl_tpu_torch.utils.priors import Normal
 
 from host_reads import checked_run
 from gaussianprocesses_jl_tpu_torch.inference import crossvalidation as cv
+from gaussianprocesses_jl_tpu_torch.inference import lbfgs
 from gaussianprocesses_jl_tpu_torch.inference.ess import ess
 from gaussianprocesses_jl_tpu_torch.inference.vi import make_neg_elbo
 from gaussianprocesses_jl_tpu_torch.models.elastic import ElasticGPE
@@ -157,6 +158,14 @@ def _predict_run(kind):
     return list(m.predict_f(xs)) + list(m.predict_f(xs, full_cov=True))
 
 
+def _lbfgs_run(kind, rounds=lbfgs.TRIAL_BLOCK):
+    """method='optax' for 4 iterations on a GPE or a GPA."""
+    m = _gpe() if kind == "gpe" else _gpa()
+    vg, x0, _, _ = m.make_objective()
+    r = lbfgs.minimize(vg, x0, 4, rounds=rounds)
+    return [r.x, r.value, r.trials]
+
+
 def _fitc_run(sharded=False):
     rng = np.random.RandomState(10)
     X = rng.randn(40, 2)
@@ -169,7 +178,7 @@ def _fitc_run(sharded=False):
 
 
 @pytest.mark.parametrize("case", ["headline", "gpa", "hmc", "split", "ess", "vi", "elastic",
-                                  "cv", "fitc"])
+                                  "cv", "fitc", "lbfgs"])
 def test_cpu_path_is_the_eager_function(case):
     """On CPU tensors the layer calls the function itself: the same bits as
     inside `graphs.eager()`, and for the targets as the plain autograd of
@@ -196,6 +205,8 @@ def test_cpu_path_is_the_eager_function(case):
     elif case == "cv":
         for call in CV_CALLS.values():
             _equal(call(_gpe(n=10)), eagerly(call)(_gpe(n=10)))
+    elif case == "lbfgs":
+        _equal(_lbfgs_run("gpa"), eagerly(_lbfgs_run)("gpa"))
     else:
         _equal(_fitc_run(), eagerly(_fitc_run)())
 
@@ -206,7 +217,8 @@ def test_cpu_path_is_the_eager_function(case):
                                   "ess", "sharded_ess", "vi_adam", "vi_lbfgs", "elastic",
                                   *(f"cv_{k}" for k in CV_CALLS), "predict_f_gpe",
                                   "predict_f_gpa", "fitc_step", "sharded_fitc_step",
-                                  "sharded_vi", "sharded_vi_train"])
+                                  "sharded_vi", "sharded_vi_train", "lbfgs_gpe", "lbfgs_gpa",
+                                  "lbfgs_gpe_blocks_of_2"])
 def test_capture_regions_read_nothing_from_the_host(case, monkeypatch):
     """Each region the layer captures runs with host reads refused; the
     regions run (a count) and give the unchecked run's bits. At n = 300 the
@@ -228,6 +240,8 @@ def test_capture_regions_read_nothing_from_the_host(case, monkeypatch):
             return CV_CALLS[case[3:]](_gpe(n=10))
         if case.startswith("predict_f"):
             return _predict_run(case.split("_")[-1])
+        if case.startswith("lbfgs_"):
+            return _lbfgs_run(case.split("_")[1], 2 if case.endswith("_2") else 1)
         if case == "sharded_vi":
             r = gt.sharded_vi(_gpa(n=12), make_mesh({"chains": 1}, device="cpu"), restarts=2,
                               nits=3)
@@ -539,3 +553,29 @@ def test_emulated_later_paths_keep_their_graphs(emulated):
     e_ = eagerly(ess)(*args, torch.Generator().manual_seed(3), n_iter=3, rounds=1)
     _equal((r.samples, r.final_loglik), (e_.samples, e_.final_loglik))
     assert _kept(ll) == 2
+
+
+def test_emulated_lbfgs_keeps_a_start_and_a_block_graph(emulated, monkeypatch):
+    """method='optax' through emulated graphs: the model keeps two graphs,
+    the iteration's start and a block of trials, captured in the first
+    iteration that needs each and replayed after; the model's data are
+    inputs of them, so a run on new data of the same shape replays them
+    and gives the eager bits."""
+    captures = []
+    capture = graphs._capture
+    monkeypatch.setattr(graphs, "_capture", lambda *a: captures.append(a) or capture(*a))
+    m = _gpe()
+    vg, x0, _, _ = m.make_objective()
+    trace = []
+    r = lbfgs.minimize(vg, x0, 6, trace=trace)
+    assert max(int(step.search.count) for _, step in trace) > 1  # a block ran
+    assert _kept(m) == 2 and len(captures) == 2
+    e = eagerly(lbfgs.minimize)(vg, x0, 6)
+    _equal([r.x, r.value, r.trials], [e.x, e.value, e.trials])
+    other = _gpe(seed=1)
+    m.fit(other.x, other.y)
+    vg, x0, _, _ = m.make_objective()
+    r = lbfgs.minimize(vg, x0, 6)
+    e = eagerly(lbfgs.minimize)(vg, x0, 6)
+    assert len(captures) == 2 and _kept(m) == 2
+    _equal([r.x, r.value, r.trials], [e.x, e.value, e.trials])

@@ -48,6 +48,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..utils import graphs
+from ..utils.profiling import span
 
 __all__ = ["minimize", "iteration", "LBFGSResult", "Iteration", "Memory", "Search", "direction",
            "init_memory", "init_search", "trial", "cubicmin", "quadmin", "MEMORY", "MAX_TRIALS",
@@ -390,7 +391,8 @@ def minimize(vg: Callable, x0: torch.Tensor, maxiter: int = 200, tol: float = 1e
     trials = torch.zeros((), dtype=torch.int64, device=x.device)
     it = evaluations = reads = 0
     for it in range(maxiter):
-        step = iteration(vg, x, mem, rounds)
+        with span("gp.lbfgs.iteration"):
+            step = iteration(vg, x, mem, rounds)
         if trace is not None:
             trace.append((x, step))
         value, mem, x = step.value, step.memory, step.x

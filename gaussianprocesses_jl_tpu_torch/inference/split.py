@@ -38,6 +38,7 @@ from typing import Callable
 import torch
 
 from ..utils import graphs
+from ..utils.profiling import span
 from .hmc import as_stream, batched_value_and_grad, hmc_iteration, start
 
 __all__ = ["split_hmc", "SplitHMCResult", "da_init", "da_update", "block_a"]
@@ -150,35 +151,36 @@ def split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Callable, a0
     t_b = None
     with torch.no_grad():
         for it in range(total):
-            in_warm = it < n_warmup
-            # during warmup the exploring step sizes, after it the averaged
-            eps_a_c = st_a[0] if in_warm else torch.exp(st_a[2])
-            eps_b_c = st_b[0] if in_warm else torch.exp(st_b[2])
+            with span("gp.split.outer"):
+                in_warm = it < n_warmup
+                # during warmup the exploring step sizes, after it the averaged
+                eps_a_c = st_a[0] if in_warm else torch.exp(st_a[2])
+                eps_b_c = st_b[0] if in_warm else torch.exp(st_b[2])
 
-            # A sweep against the cached factor
-            aux = _cached(precompute, b)
-            t_a, g_a = start(vg_a, a, (aux, b))
-            acc_sweep = torch.zeros_like(acc_a)
-            ap_sum = torch.zeros_like(st_a[0])
-            for j in range(a_iters):
-                a, t_a, g_a, aprob, accd = hmc_iteration(vg_a, a, t_a, g_a, stream, eps_a_c,
-                                                         Lmin, Lmax, rest=(aux, b))
-                acc_sweep += accd
-                ap_sum = ap_sum + aprob
-                k = it * a_iters + j
-                draws[:, k, :Da] = a
-                draws[:, k, Da:] = b
+                # A sweep against the cached factor
+                aux = _cached(precompute, b)
+                t_a, g_a = start(vg_a, a, (aux, b))
+                acc_sweep = torch.zeros_like(acc_a)
+                ap_sum = torch.zeros_like(st_a[0])
+                for j in range(a_iters):
+                    a, t_a, g_a, aprob, accd = hmc_iteration(vg_a, a, t_a, g_a, stream, eps_a_c,
+                                                             Lmin, Lmax, rest=(aux, b))
+                    acc_sweep += accd
+                    ap_sum = ap_sum + aprob
+                    k = it * a_iters + j
+                    draws[:, k, :Da] = a
+                    draws[:, k, Da:] = b
 
-            # B update, refactorizing at every leapfrog step
-            t_b, g_b = start(vg_b, b, (a,))
-            b, t_b, g_b, aprob_b, accd_b = hmc_iteration(vg_b, b, t_b, g_b, stream, eps_b_c,
-                                                         Lmin_b, Lmax_b, rest=(a,))
-            if in_warm:
-                st_a = da_update(ap_sum / a_iters, st_a, target_accept)
-                st_b = da_update(aprob_b, st_b, target_accept)
-            else:
-                acc_a += acc_sweep
-                acc_b += accd_b
+                # B update, refactorizing at every leapfrog step
+                t_b, g_b = start(vg_b, b, (a,))
+                b, t_b, g_b, aprob_b, accd_b = hmc_iteration(vg_b, b, t_b, g_b, stream, eps_b_c,
+                                                             Lmin_b, Lmax_b, rest=(a,))
+                if in_warm:
+                    st_a = da_update(ap_sum / a_iters, st_a, target_accept)
+                    st_b = da_update(aprob_b, st_b, target_accept)
+                else:
+                    acc_a += acc_sweep
+                    acc_b += accd_b
     eps_a_f = torch.exp(st_a[2]) if n_warmup > 0 else st_a[0]
     eps_b_f = torch.exp(st_b[2]) if n_warmup > 0 else st_b[0]
     w = n_warmup * a_iters

@@ -70,6 +70,7 @@ from typing import Callable
 import torch
 
 from .modules import Module
+from .profiling import span
 
 __all__ = ["run", "Bound", "eager", "capturing", "clear", "PER_OWNER"]
 
@@ -290,10 +291,25 @@ def _device(leaves: list):
     return cuda.pop()
 
 
+def _span_name(static, fn: Callable) -> str:
+    """gp.graph.<the static tag, or its first item; else fn's name>."""
+    tag = static[0] if isinstance(static, tuple) and static else static
+    return "gp.graph." + (tag if isinstance(tag, str) else fn.__name__)
+
+
 def run(owner, fn: Callable, *args, static=()):
     """fn(*args): on the card through the CUDA graph kept for (owner,
     static, the arguments' structure and shapes), captured at first use;
-    eagerly on CPU tensors or inside `eager()`."""
+    eagerly on CPU tensors or inside `eager()`. While a profiler session
+    runs, the call is one `gp.graph.<tag>` span (`utils/profiling.span`);
+    otherwise its name is not built."""
+    if torch.autograd._profiler_enabled():
+        with span(_span_name(static, fn)):
+            return _run(owner, fn, args, static)
+    return _run(owner, fn, args, static)
+
+
+def _run(owner, fn: Callable, args: tuple, static):
     leaves: list = []
     key, spec = _flatten(args, leaves)
     device = _device(leaves)

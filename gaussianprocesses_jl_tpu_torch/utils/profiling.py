@@ -1,22 +1,40 @@
 """Tracing and timing helpers (counterpart of
 `gaussianprocesses_jl_tpu/utils/profiling.py`).
 
-Seven tools:
+Six tools:
   * `trace(dir)`             - context manager writing a `torch.profiler`
                                trace (Chrome/Perfetto JSON) of the block.
+  * `span(name)`             - a named range of the port's own, kept by a
+                               running profiler session (below).
   * `device_ms_by_name(fn)`  - the card's time per call of fn(*args) by
                                kernel and by operator, from torch.profiler.
   * `device_profile(fn)`     - the same as device-busy ms and the top
                                kernels and operators.
-  * `StepTimer`              - wall-clock per-step timing with warmup
-                               discard; for sampler and optimizer loops.
   * `device_time(fn, args)`  - seconds per evaluation of fn(*args): CUDA
                                events around `reps` calls on the card, the
                                host clock on the CPU.
-  * `live_device_bytes()`    - bytes held by PyTorch's CUDA allocator.
   * `card_line()`            - the card's name and power limit, as
                                `nvidia-smi` gives them, for every number
                                a script prints.
+
+The port's spans. `span(name)` opens a `torch.profiler.record_function`
+range while a profiler session runs (this module's, or any other's), and
+otherwise returns one shared no-op context: it allocates nothing and
+enters no profiler code, so the spans cost a check of a flag when no one
+traces. A session keeps the spans beside the device's operations, on
+their clock, and exports them (`trace(dir)`'s `trace.json`). Every name
+starts with `gp.`:
+
+  * `gp.lbfgs.iteration`  - one L-BFGS iteration (`inference/lbfgs.py`);
+  * `gp.split.outer`      - one outer iteration of split HMC
+                            (`inference/split.py`);
+  * `gp.graph.<tag>`      - one `utils/graphs.run` call, replayed or eager,
+                            with its copies in and out; <tag> is its
+                            `static` tag (its first item), or the
+                            function's name where it has none.
+
+No span sits inside a function that `graphs.run` captures: it would run
+once at the capture and never at a replay.
 """
 from __future__ import annotations
 
@@ -28,8 +46,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-__all__ = ["trace", "device_ms_by_name", "device_profile", "StepTimer", "device_time",
-           "live_device_bytes", "card_line"]
+__all__ = ["trace", "span", "device_ms_by_name", "device_profile", "device_time", "card_line"]
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 def _profiler():
@@ -58,6 +77,18 @@ def trace(log_dir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """A `record_function(name)` range while a profiler session runs; else
+    the shared no-op context.
+
+        with profiling.span("gp.lbfgs.iteration"):
+            step = iteration(vg, x, mem, rounds)
+    """
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def device_ms_by_name(fn: Callable, args: Sequence = (), reps: int = 5,
@@ -110,65 +141,6 @@ def device_profile(fn: Callable, reps: int = 5, top: int = 10) -> tuple:
     return busy_ms, ranked(kernels), ranked(ops)
 
 
-def _sync(outputs) -> None:
-    devices = {t.device for t in outputs
-               if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-
-
-class StepTimer:
-    """Per-step wall-clock stats for training/sampling loops.
-
-    Synchronises the devices of the step's outputs, so each recorded
-    interval is a true end-to-end step time (host enqueue + device). The
-    first `warmup` steps (kernel builds, allocator growth) are recorded
-    separately.
-
-        timer = StepTimer(warmup=1)
-        for _ in range(steps):
-            with timer.step() as s:
-                loss = train_step()
-                s.block_on(loss)
-        print(timer.summary())
-    """
-
-    class _Step:
-        def __init__(self):
-            self._outputs = []
-
-        def block_on(self, *outputs):
-            self._outputs.extend(outputs)
-
-    def __init__(self, warmup: int = 1):
-        self.warmup = warmup
-        self.times: list[float] = []
-        self.warmup_times: list[float] = []
-
-    @contextlib.contextmanager
-    def step(self):
-        s = StepTimer._Step()
-        t0 = time.perf_counter()
-        yield s
-        _sync(s._outputs)
-        dt = time.perf_counter() - t0
-        if len(self.warmup_times) < self.warmup:
-            self.warmup_times.append(dt)
-        else:
-            self.times.append(dt)
-
-    def summary(self) -> dict:
-        ts = np.asarray(self.times) if self.times else np.asarray([np.nan])
-        return {
-            "steps": len(self.times),
-            "mean_ms": float(np.mean(ts) * 1e3),
-            "median_ms": float(np.median(ts) * 1e3),
-            "min_ms": float(np.min(ts) * 1e3),
-            "p95_ms": float(np.percentile(ts, 95) * 1e3),
-            "compile_ms": float(np.sum(self.warmup_times) * 1e3),
-        }
-
-
 def device_time(fn: Callable, args: Sequence, reps: int = 10,
                 trials: int = 4) -> float:
     """Best-of-`trials` seconds per evaluation of `fn(*args)`, each trial
@@ -204,14 +176,6 @@ def device_time(fn: Callable, args: Sequence, reps: int = 10,
             dt = time.perf_counter() - t0
         best = min(best, dt / reps)
     return best
-
-
-def live_device_bytes() -> int:
-    """Bytes held by PyTorch's CUDA allocator over every visible device
-    (0 on a machine without CUDA)."""
-    if not torch.cuda.is_available():
-        return 0
-    return sum(torch.cuda.memory_allocated(i) for i in range(torch.cuda.device_count()))
 
 
 def card_line() -> str:

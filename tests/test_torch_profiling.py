@@ -10,24 +10,6 @@ import gaussianprocesses_jl_tpu_torch as gp
 from gaussianprocesses_jl_tpu_torch.utils import profiling
 
 
-def test_step_timer_records_and_summarizes():
-    timer = profiling.StepTimer(warmup=1)
-
-    def f(x):
-        return torch.sum(x * x)
-
-    x = torch.arange(64.0)
-    for _ in range(4):
-        with timer.step() as s:
-            out = f(x)
-            s.block_on(out)
-    summ = timer.summary()
-    assert summ["steps"] == 3  # warmup discarded
-    assert summ["min_ms"] > 0
-    assert summ["compile_ms"] > 0
-    assert summ["min_ms"] <= summ["median_ms"] <= summ["p95_ms"] + 1e-9
-
-
 def test_device_time_returns_positive_and_consistent():
     X = torch.as_tensor(np.random.RandomState(0).randn(64, 3))
     kern = gp.SE(0.0, 0.0).to(dtype=torch.float64, device="cpu")
@@ -83,15 +65,6 @@ def test_device_profile_ranks_and_sums_kernels_alone():
     assert [ms for _, ms, _ in kernels] == sorted((ms for _, ms, _ in kernels), reverse=True)
     if not torch.cuda.is_available():
         assert (busy, kernels, ops) == (0, [], [])
-
-
-def test_live_device_bytes_nonnegative():
-    x = torch.ones((128, 128))
-    assert profiling.live_device_bytes() >= 0
-    if not torch.cuda.is_available():
-        assert profiling.live_device_bytes() == 0
-    del x
-
 
 
 class _Event:

@@ -150,6 +150,15 @@ Phases, each of which exits non-zero on the first failure:
      one FITC step at N = 100 000 (`phase_graph_pairs`: events, enqueue and
      busy ms each way, equal bits or within `GRAPH_BARS`); a dropped
      model's graph gives its memory back.
+ 33. the fused leapfrog of split HMC's block A (`csrc/leapfrog.cu`,
+     `perf/leapfrog_study.py`): the kernel against its plain version at
+     configuration #2's shape (C = 128, n = 200, f32; also against the
+     graphed transition) and at a ragged one (C = 7, n = 61, f32 and f64),
+     one launch each, the card synchronized; a refused launch raises; the
+     kernel's, the plain version's and the graphed transition's times, and
+     one split outer iteration: its 16 A transitions on the fused route, one
+     kernel launch each (the launches counted from 0 over those iterations;
+     the kernel table's `launches`).
 On the card the targets, the samplers, VI's steps, optax's L-BFGS,
 cross-validation, the predictives and the elastic append run through
 their CUDA graphs (`utils/graphs.py`) in every phase unless it asks for
@@ -202,8 +211,8 @@ from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
 from gaussianprocesses_jl_tpu_torch.parallel import chains
 from gaussianprocesses_jl_tpu_torch.perf import (anchors, bench_study, elastic_study, fitc_study,
                                                  gpa_study, gram_study, lbfgs_study,
-                                                 parallel_study, single_parts, student_t_study,
-                                                 vi_study)
+                                                 leapfrog_study, parallel_study, single_parts,
+                                                 student_t_study, vi_study)
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
     HBM_BYTES_PER_S,
@@ -2250,6 +2259,29 @@ def phase_graphs(dev) -> dict:
     return out
 
 
+def phase_leapfrog(dev) -> dict:
+    """Phase 33: the fused leapfrog kernel against its plain version (and
+    the graphed transition at configuration #2's shape) at each of
+    `leapfrog_study.CASES`, a refused launch, and the times."""
+    out = {}
+    for name, dtype, C, n in leapfrog_study.CASES:
+        res = leapfrog_study.compare(dev, dtype, C, n, graphed=C > 64)
+        print(f"leapfrog {name} (C = {C}, n = {n}): {res}", flush=True)
+        beyond = leapfrog_study.beyond_limits(res, dtype, C)
+        if beyond:
+            fail(f"phase 33: the leapfrog kernel at {name} beyond its limits: {beyond}")
+        out[name] = res
+    out["refused"] = leapfrog_study.refused(dev)
+    out["times"] = leapfrog_study.times(dev)
+    routes = out["times"]["a_transitions_by_route"]
+    launches = out["times"]["launches_per_outer_iteration"]
+    if routes != {"fused": gpa_study.A_ITERS, "graphed": 0} or launches != routes["fused"]:
+        fail(f"phase 33: an outer iteration's A transitions by route {routes} and kernel "
+             f"launches {launches}, not {gpa_study.A_ITERS} fused transitions of one launch each")
+    print("leapfrog: " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2478,6 +2510,11 @@ def main() -> int:
     graphed = phase_graphs(dev)
     print("graphs against eager: " + json.dumps(graphed))
     print(f"phase 32: {time.perf_counter() - t0:.1f} s", flush=True)
+    # 33. the fused leapfrog
+    t0 = time.perf_counter()
+    print("phase 33: the fused leapfrog of split HMC's block A", flush=True)
+    leap = phase_leapfrog(dev)
+    print(f"phase 33: {time.perf_counter() - t0:.1f} s", flush=True)
     dist_errs = {k: max(dist[p]["max_abs_err"][k] for p in dist) for k in ("gram", "gram_vjp")}
     for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs,
                  config5["max_abs_err"], dist_errs, table_errs, graphed["max_abs_err"]):
@@ -2560,6 +2597,22 @@ def main() -> int:
         "launch_probe": ("csrc/cholesky.cu", "perf/pallas_cholesky_study.py:257"),
         "single_launch_cholesky": ("csrc/cholesky.cu", "perf/pallas_cholesky_study.py:352"),
     }
+    leap_times = leap["times"]
+    table["kernels"].append({
+        "name": "leapfrog",
+        "route": "cuda",
+        "source": "gaussianprocesses_jl_tpu_torch/csrc/leapfrog.cu",
+        "replaces": "none: the graphed hmc_transition of split HMC's block A",
+        "launches": leap_times["launches_per_outer_iteration"],
+        "max_gap": {name: leap[name]["plain"] for name, *_ in leapfrog_study.CASES},
+        "ms": leap_times["kernel_ms"],
+        "plain_ms": leap_times["plain_ms"],
+        "bound_ms": leap_times["bound_ms"],
+        "bound_by": leap_times["bound_by"],
+        "library_ms": None,
+        "graphed_iteration_ms": leap_times["graphed_iteration_ms"],
+        "fused_iteration_ms": leap_times["fused_iteration_ms"],
+    })
     for name, (src, replaces) in study_src.items():
         ms, pl, (b_ms, b_by), lib, extra = study_rows[name]
         table["kernels"].append({

@@ -28,6 +28,14 @@ package's compiled sweep: kept for `precompute`, `logprob_a` and
 `logprob_b`, so a second run of the same target captures nothing. The A
 graphs take the cached factor's tensors as inputs. The draws and the dual
 averaging stay outside every graph.
+
+Block A's transition has a second route, the fused one: one launch of the
+leapfrog kernel (`ops/leapfrog.py`) runs every chain's whole A transition,
+from the same draws, in place of the transition's graph. It is taken where
+`logprob_a` carries the kernel's description of its target (`.fused`, set
+by `GPA.make_split_logprob` for a float32 probit GPA whose block A is v
+alone, on a dense factor), the chains are on the card and a block holds a
+chain's factor. `ROUTES` counts the A transitions each route ran.
 """
 from __future__ import annotations
 
@@ -37,11 +45,16 @@ from typing import Callable
 
 import torch
 
+from ..ops import leapfrog
 from ..utils import graphs
 from ..utils.profiling import span
 from .hmc import as_stream, batched_value_and_grad, hmc_iteration, start
 
-__all__ = ["split_hmc", "SplitHMCResult", "da_init", "da_update", "block_a"]
+__all__ = ["split_hmc", "SplitHMCResult", "da_init", "da_update", "block_a", "ROUTES"]
+
+# block A's transitions by route: the fused leapfrog kernel or the graphed
+# `hmc_transition`
+ROUTES = {"fused": 0, "graphed": 0}
 
 
 @dataclass
@@ -111,6 +124,27 @@ def block_a(logprob_a: Callable) -> Callable:
     return vg
 
 
+def _on_card(a) -> bool:
+    return a.is_cuda
+
+
+def _fused(logprob_a: Callable, a):
+    """Block A's `ops.leapfrog.ProbitA` when the fused route takes it, else
+    None."""
+    block = getattr(logprob_a, "fused", None)
+    if block is None or not (_on_card(a) and leapfrog.fits(a.shape[1], a.dtype)):
+        return None
+    return block
+
+
+def _fused_iteration(block, aux, const, a, t, g, stream, eps, Lmin: int, Lmax: int):
+    """One A transition of every chain on the fused route: `hmc_iteration`'s
+    draws from `stream` in its order (z, L, u), then one launch."""
+    C, D = a.shape
+    z, L, u = stream.hmc(C, D, Lmin, Lmax, a)
+    return leapfrog.transition(block, aux, const, a, t, g, z, L, torch.log(u), eps, Lmax)
+
+
 def split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Callable, a0, b0,
               generator=None, n_iter: int = 1000, a_iters: int = 4, eps_a: float = 0.2,
               eps_b: float = 0.05, Lmin: int = 5, Lmax: int = 15, Lmin_b: int | None = None,
@@ -148,6 +182,7 @@ def split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Callable, a0
     acc_b = torch.zeros_like(acc_a)
     vg_a = block_a(logprob_a)
     vg_b = batched_value_and_grad(logprob_b, 0)
+    fused = _fused(logprob_a, a)
     t_b = None
     with torch.no_grad():
         for it in range(total):
@@ -160,11 +195,20 @@ def split_hmc(precompute: Callable, logprob_a: Callable, logprob_b: Callable, a0
                 # A sweep against the cached factor
                 aux = _cached(precompute, b)
                 t_a, g_a = start(vg_a, a, (aux, b))
+                const = None if fused is None else fused.prior(b)
                 acc_sweep = torch.zeros_like(acc_a)
                 ap_sum = torch.zeros_like(st_a[0])
                 for j in range(a_iters):
-                    a, t_a, g_a, aprob, accd = hmc_iteration(vg_a, a, t_a, g_a, stream, eps_a_c,
-                                                             Lmin, Lmax, rest=(aux, b))
+                    if fused is None:
+                        a, t_a, g_a, aprob, accd = hmc_iteration(vg_a, a, t_a, g_a, stream,
+                                                                 eps_a_c, Lmin, Lmax,
+                                                                 rest=(aux, b))
+                        ROUTES["graphed"] += 1
+                    else:
+                        a, t_a, g_a, aprob, accd = _fused_iteration(fused, aux, const, a, t_a,
+                                                                    g_a, stream, eps_a_c, Lmin,
+                                                                    Lmax)
+                        ROUTES["fused"] += 1
                     acc_sweep += accd
                     ap_sum = ap_sum + aprob
                     k = it * a_iters + j

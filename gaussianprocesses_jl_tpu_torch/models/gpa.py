@@ -19,7 +19,8 @@ from typing import Any
 import torch
 
 from ..ops.kernels import Kernel
-from ..ops.likelihoods import Likelihood
+from ..ops.leapfrog import ProbitA
+from ..ops.likelihoods import BernLik, Likelihood
 from ..ops.linalg import require_pd
 from ..ops.means import Mean, MeanZero
 from ..utils import graphs
@@ -27,7 +28,8 @@ from ..utils.modules import Module, module, replace
 from .covariance import FullCovariance
 from .gpe import _as_X, _device, _embed, _mvn_draws, value_and_grad
 
-__all__ = ["GPAParams", "GPA", "gpa_nugget", "gpa_ll", "gpa_target", "gpa_predict_f"]
+__all__ = ["GPAParams", "GPA", "gpa_nugget", "gpa_ll", "gpa_target", "gpa_predict_f",
+           "fused_block_a"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -68,6 +70,31 @@ def _hyper_prior(params: GPAParams):
         if any(pr is not None for pr in m.priors_flat()):
             lp = lp + m.prior_logpdf()
     return lp
+
+
+def fused_block_a(params: GPAParams, X, y, covstrat, include_priors: bool = True):
+    """Block A of the split target as the fused leapfrog kernel computes it
+    (`ops.leapfrog.ProbitA`), or None where it does not: a probit
+    likelihood (`BernLik`), block A the latents v alone (the likelihood and
+    the mean carry no parameters) and a dense lower factor
+    (`FullCovariance`). Its prior(b) is the hyperprior at each chain's
+    kernel parameters b (C, Db)."""
+    if not (type(params.lik) is BernLik and params.mean.n_params == 0
+            and type(covstrat) is FullCovariance):
+        return None
+    v0 = params.v.detach().reshape(-1)
+    with_priors = include_priors and any(
+        pr is not None for m in (params.lik, params.mean, params.kernel) for pr in m.priors_flat())
+
+    def prior(b):
+        if not with_priors:
+            return b.new_zeros(b.shape[0])
+        return torch.func.vmap(
+            lambda b1: _hyper_prior(params.with_flat_params(torch.cat([v0, b1]))))(b)
+
+    with torch.no_grad():
+        mu = params.mean.mean(X).contiguous()
+    return ProbitA(y=y.contiguous(), mu=mu, prior=prior)
 
 
 def _reject(ok, value):
@@ -297,6 +324,10 @@ class GPA:
           precompute(b)          -> pd (the factorized K at kernel params b)
           logprob_a(a, pd, b)    -> the full joint target with the CACHED pd
           logprob_b(b, a)        -> the full joint target, rebuilding pd
+
+        In float32, `logprob_a.fused` is `fused_block_a`'s description of
+        block A (None where the kernel does not compute it): the split
+        sampler's fused leapfrog route on the card.
         """
         base, X, y, cs = self.params, self.x, self.y, self.covstrat
         na = base.block_slices()[3].start
@@ -324,6 +355,8 @@ class GPA:
                 return gpa_target(p, X, y, cs)[0]
             return gpa_ll(p, X, y, cs)[0]
 
+        logprob_a.fused = (fused_block_a(base, X, y, cs, include_priors)
+                           if X.dtype == torch.float32 else None)
         return precompute, logprob_a, logprob_b, full0[:na], full0[na:]
 
     def make_objective(self, lik=True, domean=True, kern=True):

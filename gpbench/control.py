@@ -8,8 +8,10 @@ Each run is a whole run of the cell (set-up, window, comparison) with the
 control, or with `--program` the program itself, in the program's place;
 one JSON line a seed. The control has to come out as not correct: the
 smallest reading it gives over the seeds is the upper reading of each
-limit, the largest the program gives the lower one. The benchmark's own
-runs never run it. Needs the card unless `--device cpu`.
+limit, the largest the program gives the lower one. Beside "checks", what
+the check found (`Cell.notes`: for "hmc", the accept band's excused count,
+largest band and the reading of the fixed band). The benchmark's own runs
+never run it. Needs the card unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ def readings(workload: str, seeds, seconds: float, program: bool, device: torch.
         t0 = time.perf_counter()
         res = harness.run(cell)
         out.append({"seed": seed, "who": "program" if program else "control",
-                    "correct": res["correct"], "checks": res["checks"],
+                    "correct": res["correct"], "checks": res["checks"], **cell.notes,
                     "seconds": time.perf_counter() - t0})
         print(json.dumps(out[-1]), flush=True)
     return out

@@ -36,7 +36,7 @@ import os
 import subprocess
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Callable
@@ -102,6 +102,7 @@ class Cell:
     end_to_end: list  # BENCHMARK.json's entries that this cell reports
     per_layer: list
     make_program: Callable = None
+    notes: dict = field(default_factory=dict)  # what a loop's check found beside its numbers
 
 
 def _merge(base: dict, over: dict | None) -> dict:

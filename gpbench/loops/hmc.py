@@ -28,9 +28,12 @@ chunks, drawn from the seed, one outer iteration drawn from the seed. A
 chain's gap after an update is the largest difference of its parameters
 from the reference's, over max(1, the reference's largest); `hmc_gap` is
 the largest over the chains and updates, leaving out the updates whose
-accept test the reference finds within ACCEPT_BAND of its threshold
-(|H(start) - H(end) - log u|): there float32 and float64 may decide
-either way, and a chain's gap is the size of a move.
+accept test the reference finds within its accept band of the threshold
+(|m| = |H(start) - H(end) - log u|): there float32 and float64 may decide
+either way, and a chain's gap is the size of a move. The band is
+ACCEPT_BAND, and in an outer iteration that holds a suspect (a gap over the
+limit, |m| outside ACCEPT_BAND) it is set at each update by float32's own
+error at that state, as the reference measures it (`band`).
 """
 from __future__ import annotations
 
@@ -41,15 +44,21 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from gpbench.reference import precision
 from gpbench.reference.diagnostics import effective_sample_size, split_rhat
 
 from .fit import data, spread
 
-__all__ = ["setup", "window", "end_to_end", "check", "followed", "summary", "ess_per_s"]
+__all__ = ["setup", "window", "end_to_end", "check", "band", "band_of", "iteration_args", "summary",
+           "ess_per_s"]
 
 # the margin |H(start) - H(end) - log u| under which float32 and float64 may decide an accept
-# test either way
+# test either way at any state: the band's floor
 ACCEPT_BAND = 0.01
+# a suspect's band: KAPPA times the largest change of the margin over PERTURBATIONS evaluations
+# perturbed at float32's error (`band`)
+KAPPA = 2.0
+PERTURBATIONS = 4
 
 
 def setup(cell):
@@ -127,56 +136,121 @@ def ess_per_s(record) -> float:
     return record.diagnostics["ess_median"] / record.window_s
 
 
-def _gaps(cell, state, a_in, b_in, gen_state, skip, rows, b_out):
+def _gaps(cell, state, a_in, b_in, gen_state, skip, rows, b_out, perturb=None, mode="f64"):
     """The gaps and the reference's accept margins (a_iters + 1, C) of one
     outer iteration of the program: its input (a_in, b_in), the
     generator's state `skip` outer iterations before it, its draws' rows
-    (C, a_iters, p) and its b after the B update."""
+    (C, a_iters, p) and its b after the B update. `perturb`: the
+    reference's, on every matrix it factors (`precision.Float32Error`);
+    `mode`: the reference's precision."""
     cfg = cell.config
     n, k = cfg["layout"]["latent"], cfg["sampler"]["a_iters"]
-    dev = state.X.device
-    gen = torch.Generator(device=dev)
+    dt = precision.dtype_of(mode)
+    gen = torch.Generator(device=state.X.device)
     gen.set_state(gen_state)
     cell.reference.skip(gen, a_in.shape[0], n, b_in.shape[1], cfg, skip)
     given = rows[:, :k, :n].transpose(0, 1).double()
     ref_a, ref_b, _, margin = cell.reference.outer_iteration(
-        a_in.double(), b_in.double(), gen, state.X.double(), state.y.double(), cfg, "f64",
-        given_a=given)
+        a_in.to(dt), b_in.to(dt), gen, state.X.to(dt), state.y.to(dt), cfg, mode,
+        given_a=given.to(dt), perturb=perturb)
 
     def gap(prog, ref):
+        ref = ref.double()
         return (prog - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1.0)
 
-    return torch.cat([gap(given, ref_a), gap(b_out.double(), ref_b)[None]], 0), margin
+    return torch.cat([gap(given, ref_a), gap(b_out.double(), ref_b)[None]], 0), margin.double()
 
 
-def followed(cell, state, record) -> list:
-    """[(gaps, margins)] of the outer iterations that the reference follows."""
-    tr = cell.traffic
+def iteration_args(cell, a_in, b_in, gen_state, draws, final, j: int) -> tuple:
+    """`_gaps`'s arguments for outer iteration j of a sampler call from
+    (a_in, b_in) with the generator at `gen_state`, given the call's draws
+    (C, its outer iterations x a_iters, p) and final state."""
     n, k = cell.config["layout"]["latent"], cell.config["sampler"]["a_iters"]
+    if j:  # the state after outer iteration j - 1: its last A update, its B update
+        a_in, b_in = draws[:, j * k - 1, :n], draws[:, j * k, n:]
+    b_out = draws[:, (j + 1) * k, n:] if (j + 1) * k < draws.shape[1] else final[:, n:]
+    return a_in, b_in, gen_state, j, draws[:, j * k:(j + 1) * k], b_out
+
+
+def _inputs(cell, state, record) -> list:
+    """[(outer iteration, `_gaps`'s arguments)] of the outer iterations that
+    the reference follows: the burn-in's first, and one in each of
+    `check_chunks` of the window's chunks, all drawn from the seed."""
+    tr = cell.traffic
     a0, b0, st0, rows0, final0 = state.first
-    b_out0 = rows0[:, k, n:] if final0 is None else final0[:, n:]
-    gaps = [_gaps(cell, state, a0, b0, st0, 0, rows0, b_out0)]
+    out = [(0, iteration_args(cell, a0, b0, st0, rows0, final0, 0))]
     rng = np.random.default_rng([cell.seed, 1])
     for i in sorted(rng.choice(len(record.chunks), size=min(tr["check_chunks"],
                                                              len(record.chunks)),
                                replace=False)):
         a_in, b_in, st, final = record.chunks[i]
-        draws, j = record.draws[i], int(rng.integers(tr["chunk"]))
-        if j:  # the state after outer iteration j - 1: its last A update, its B update
-            a_in, b_in = draws[:, j * k - 1, :n], draws[:, j * k, n:]
-        b_out = draws[:, (j + 1) * k, n:] if j + 1 < tr["chunk"] else final[:, n:]
-        gaps.append(_gaps(cell, state, a_in, b_in, st, j, draws[:, j * k:(j + 1) * k], b_out))
-    return gaps
+        j = int(rng.integers(tr["chunk"]))
+        out.append((tr["burn_in"] + i * tr["chunk"] + j,
+                    iteration_args(cell, a_in, b_in, st, record.draws[i], final, j)))
+    return out
+
+
+def band_of(margin, perturbed):
+    """Each update's accept band: max(ACCEPT_BAND, KAPPA s), s the largest
+    change of the margin (a_iters + 1, C) over the perturbed evaluations'
+    margins (draws, a_iters + 1, C); ACCEPT_BAND where the margin, or any
+    perturbed one, is not finite in float32 (a path that blew up, which
+    float32 reads as not finite): that update rejects whatever the
+    rounding."""
+    def finite(x):
+        return x.abs() <= torch.finfo(torch.float32).max
+
+    s = (perturbed - margin).abs().amax(0)
+    return torch.where(finite(margin) & finite(perturbed).all(0),
+                       (KAPPA * s).clamp_min(ACCEPT_BAND), torch.full_like(margin, ACCEPT_BAND))
+
+
+def band(cell, state, iteration: int, args, margin):
+    """`band_of` one followed outer iteration (`_gaps`'s arguments `args`,
+    its margins `margin`) over PERTURBATIONS evaluations from the same
+    starts and draws, each with every matrix it factors perturbed at
+    float32's backward-error size (`precision.Float32Error`, keyed by the
+    run's seed, the iteration and the draw). It reads the reference's inputs
+    alone (with the program's states before each update), never what the
+    program made of them."""
+    return band_of(margin, torch.stack([
+        _gaps(cell, state, *args, perturb=precision.Float32Error((cell.seed, iteration, r),
+                                                                 state.X.device))[1]
+        for r in range(PERTURBATIONS)]))
 
 
 def check(cell, state, record) -> list:
-    tr = cell.traffic
-    pairs = followed(cell, state, record)
-    gaps = torch.cat([g for g, _ in pairs]).flatten()
-    margins = torch.cat([m for _, m in pairs]).flatten()
-    kept = gaps[margins.abs() > ACCEPT_BAND]
-    print(f"hmc_gap over {kept.numel()} of {gaps.numel()} chain updates (the rest within the "
-          f"accept band); median {float(kept.median()) if kept.numel() else float('nan')}",
-          file=sys.stderr)
-    return [("hmc_gap", float(kept.max()) if kept.numel() else float("inf"),
-             tr["limits"]["hmc_gap"])]
+    """`hmc_gap`: the largest gap over the followed updates whose margin
+    lies outside their band. Bands wider than ACCEPT_BAND are worked out
+    only in the outer iterations that hold a suspect, an update whose gap
+    is over the limit and whose margin is outside ACCEPT_BAND. What the
+    band did goes to standard error and to `cell.notes["hmc_band"]`."""
+    limit = cell.traffic["limits"]["hmc_gap"]
+    gaps, margins, bands = [], [], []
+    t0 = time.perf_counter()
+    for iteration, args in _inputs(cell, state, record):
+        g, m = _gaps(cell, state, *args)
+        gaps.append(g)
+        margins.append(m)
+        suspect = (g > limit) & (m.abs() > ACCEPT_BAND)
+        bands.append(band(cell, state, iteration, args, m) if bool(suspect.any())
+                     else torch.full_like(m, ACCEPT_BAND))
+    gaps, margins, bands = (torch.cat(x).flatten() for x in (gaps, margins, bands))
+    outside = margins.abs() > ACCEPT_BAND
+    kept = gaps[margins.abs() > bands]
+    fixed = gaps[outside]
+
+    def largest(x):
+        return float(x.max()) if x.numel() else float("inf")
+
+    notes = {"checked": gaps.numel(), "kept": kept.numel(),
+             "excused": int((outside & (margins.abs() <= bands)).sum()),
+             "largest_band": float(bands.max()), "fixed_band_gap": largest(fixed),
+             "check_s": time.perf_counter() - t0}
+    cell.notes["hmc_band"] = notes
+    print(f"hmc_gap over {kept.numel()} of {gaps.numel()} chain updates (the rest within their "
+          f"accept band); median {float(kept.median()) if kept.numel() else float('nan')}; "
+          f"the band excused {notes['excused']} beyond {ACCEPT_BAND}, largest band "
+          f"{notes['largest_band']}; with the fixed {ACCEPT_BAND} band hmc_gap would read "
+          f"{notes['fixed_band_gap']}; check {notes['check_s']:.2f} s", file=sys.stderr)
+    return [("hmc_gap", largest(kept), limit)]

@@ -70,22 +70,26 @@ def normal_logpdf(x, mu, sigma):
     return -0.5 * z * z - math.log(sigma) - 0.5 * _LOG_2PI
 
 
-def gpa_factor(hyp, X, nugget, mode):
+def gpa_factor(hyp, X, nugget, mode, perturb=None):
     """(L (C, n, n), ok (C,)): the factors of K + nugget I for the kernel
-    hyperparameters hyp (C, d + 1), Matern 3/2 with ARD."""
+    hyperparameters hyp (C, d + 1), Matern 3/2 with ARD; `perturb`, if
+    given, maps K + nugget I to the matrix factored in its place."""
     d = X.shape[-1]
     K = mat32_ard_gram(X, X, hyp[:, :d], hyp[:, d], mode) + nugget * _eye(X.shape[0], X)
+    if perturb is not None:
+        K = perturb(K)
     L, info = torch.linalg.cholesky_ex(K)
     return L, (info == 0) & torch.isfinite(L).flatten(1).all(1)
 
 
-def gpa_target(v, hyp, X, y, nugget, prior, mode, factor=None):
+def gpa_target(v, hyp, X, y, nugget, prior, mode, factor=None, perturb=None):
     """The latent probit GP's log target (C,) at whitened latents v (C, n)
     and kernel hyperparameters hyp (C, d + 1): sum log Phi((2y - 1) f)
     with f = L v, + log N(v; 0, I) + the hyperparameters' Normal(mu, sigma)
     priors; -inf where K does not factor. `factor`: (L, ok) held fixed
-    (the split sampler's A block), else built from hyp."""
-    L, ok = gpa_factor(hyp, X, nugget, mode) if factor is None else factor
+    (the split sampler's A block), else built from hyp (and `perturb`, as
+    in `gpa_factor`)."""
+    L, ok = gpa_factor(hyp, X, nugget, mode, perturb) if factor is None else factor
     f = mm(L, v[..., None], mode)[..., 0]
     ll = torch.sum(torch.special.log_ndtr((2.0 * y - 1.0) * f), dim=-1)
     logp_v = -0.5 * (torch.sum(v * v, dim=-1) + v.shape[-1] * _LOG_2PI)

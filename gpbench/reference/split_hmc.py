@@ -77,19 +77,21 @@ def transition(vg, theta, z, L, u, eps: float, Lmax: int):
     return torch.where(accepted[:, None], th, theta), accepted, margin
 
 
-def outer_iteration(a, b, gen, X, y, cfg: dict, mode: str, given_a=None):
+def outer_iteration(a, b, gen, X, y, cfg: dict, mode: str, given_a=None, perturb=None):
     """One outer iteration from (a (C, n), b (C, d + 1)): (a after each A
     update (a_iters, C, n), b after the B update, the accept flags and the
     accept tests' margins (a_iters + 1, C)). With `given_a` (a_iters, C, n), the states another
     sampler reached, each update starts from that sampler's state before it
     (the A updates from a, then given_a[0], ...; the B update from
-    given_a[-1]) and not from this one's own."""
+    given_a[-1]) and not from this one's own. `perturb` (`gp.gpa_factor`'s)
+    acts on every matrix factored: A's one factor, and B's at each
+    evaluation."""
     s = cfg["sampler"]
     dtype = a.dtype
     prior = cfg["kernel_prior"]
     C, Da = a.shape
     with torch.no_grad():
-        factor = gpa_factor(b, X, cfg["nugget"], mode)
+        factor = gpa_factor(b, X, cfg["nugget"], mode, perturb)
 
     def vg_a(v):
         return value_and_grad(lambda v1: gpa_target(v1, b, X, y, cfg["nugget"], prior, mode,
@@ -106,7 +108,8 @@ def outer_iteration(a, b, gen, X, y, cfg: dict, mode: str, given_a=None):
         cur = new if given_a is None else given_a[j].to(dtype)
 
     def vg_b(h):
-        return value_and_grad(lambda h1: gpa_target(cur, h1, X, y, cfg["nugget"], prior, mode), h)
+        return value_and_grad(lambda h1: gpa_target(cur, h1, X, y, cfg["nugget"], prior, mode,
+                                                    perturb=perturb), h)
 
     z, L, u = draws(gen, C, b.shape[1], s["Lmin"], s["Lmax"], _draw_dtype(cfg))
     b_new, ok, margin = transition(vg_b, b, z, L, u, s["eps_b"], s["Lmax"])

@@ -15,9 +15,9 @@ SMALL = {
 
 
 def small_run(cell: str, seed: int = 12345, seconds: float = 1.0, trace: bool = False,
-              make_program=None) -> dict:
-    """One run of the cell on the CPU at its small size."""
+              make_program=None, overrides: dict | None = None) -> dict:
+    """One run of the cell on the CPU at its small size (`overrides` on top)."""
     spec = harness.load_spec()
-    c = harness.resolve(spec, cell, seed, seconds, trace, torch.device("cpu"), SMALL[cell],
-                        make_program)
+    c = harness.resolve(spec, cell, seed, seconds, trace, torch.device("cpu"),
+                        harness._merge(SMALL[cell], overrides), make_program)
     return harness.run(c)

@@ -16,18 +16,28 @@ on a CUDA tensor. FSA's ragged partition is padded to one block width with
 masks; its per-block grams run as one batched gram (`torch.func.vmap` over
 the blocks, the kernel's parameters shared).
 
+The QR is the strategies' largest piece of device work, and it runs inside
+the CUDA graph that replays an evaluation. So its forward runs between the
+device markers of `gp.qr.fwd` and its VJP between those of `gp.qr.vjp`
+(`utils/profiling.bracket`: kernels on the stream, which the graph captures
+and a device trace names), and `QR_SHAPES` counts the factorizations and
+their VJPs by shape, as `ops/gram.LAUNCH_SHAPES` counts the gram's launches
+(a graph's replay adds what its capture counted, `utils/graphs.py`).
+
 The strategies plug into GPE through the covariance-strategy interface
 (build / predict_mvn); the constructors `SoR`, `DTC`, `FITC` and `FSA` build
 a GPE on `device` (the CUDA device unless the caller names another).
 """
 from __future__ import annotations
 
+import collections
 from typing import Any
 
 import torch
 
 from ..ops.linalg import (add_diag, chol_logdet, default_jitter, safe_cholesky,
                           solve_lower, solve_upper)
+from ..utils import profiling
 from ..utils.modules import Module, module
 
 __all__ = [
@@ -41,7 +51,12 @@ __all__ = [
     "FSA",
     "LowRankPD",
     "pad_pred_blocks",
+    "QR_SHAPES",
 ]
+
+# reduced QRs of the stacked matrix by ("qr", rows, columns), and their VJPs
+# by ("qr_vjp", rows, columns)
+QR_SHAPES = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +246,45 @@ def _common_pieces(kernel, Xu, X):
     return Kuu, Luu, ok_uu, Kuf
 
 
+class _VjpMark(torch.autograd.Function):
+    """The identity on its tensors. Its backward launches a marker of the
+    QR's VJP (`gp.qr.vjp`): after the QR (end False) the VJP's begin, with
+    the VJP counted in `QR_SHAPES`; before it (end True) the VJP's end."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(end, shape, *xs):
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.end, ctx.shape = inputs[0], inputs[1]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if not ctx.end:
+            QR_SHAPES[("qr_vjp", *ctx.shape)] += 1
+        profiling.mark("gp.qr.vjp", ctx.end, grads[0])
+        return (None, None, *grads)
+
+
+def _qr(A):
+    """The reduced QR of A (rows >= columns) between the markers of
+    `gp.qr.fwd`, its VJP between those of `gp.qr.vjp`; counted by shape."""
+    shape = tuple(A.shape)
+    (A,) = _VjpMark.apply(True, shape, A)
+    with profiling.bracket("gp.qr.fwd", A):
+        Q, R = torch.linalg.qr(A, mode="reduced")
+    QR_SHAPES[("qr", *shape)] += 1
+    return _VjpMark.apply(False, shape, Q, R)
+
+
 def _finish(Luu, ok_uu, Kuf, lam):
     """R^T R = Kuu + Kuf Lambda^-1 Kfu from the reduced QR of
     [Lambda^-1/2 Kfu; Luu^T] (rows >= columns), R's diagonal made positive."""
     W = lam.whiten_rows(Kuf.T)  # (n', m)
-    Q, R = torch.linalg.qr(torch.cat([W, Luu.T]), mode="reduced")
+    Q, R = _qr(torch.cat([W, Luu.T]))
     s = torch.sign(R.diagonal())
     s = torch.where(s == 0, torch.ones_like(s), s)
     R = s[:, None] * R

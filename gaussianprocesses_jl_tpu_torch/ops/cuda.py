@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # every kernel source of the package
-SOURCES = ("gram.cu", "cholesky.cu", "leapfrog.cu")
+SOURCES = ("gram.cu", "cholesky.cu", "leapfrog.cu", "marker.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -54,7 +54,8 @@ NCCL under capture is untried here, so a distributed strategy at P > 1 on
 the card runs inside `eager()`.
 
 Launch counts: `ops/gram.py`'s and `ops/cholesky_kernels.py`'s wrappers
-count their launches in Python, which a replay does not pass through. The
+count their launches in Python, which a replay does not pass through, and
+`models/sparse.py` its QRs and their VJPs (`QR_SHAPES`). The
 counts a capture records are added at every replay, and the warm-up's and
 the capture's own are taken back: one call counts one evaluation's
 launches, whether eager or replayed.
@@ -164,9 +165,10 @@ def _unflatten(spec, it):
 
 
 def _counters() -> list:
+    from ..models import sparse
     from ..ops import cholesky_kernels, gram
 
-    return [gram.LAUNCHES, gram.LAUNCH_SHAPES, cholesky_kernels.LAUNCHES]
+    return [gram.LAUNCHES, gram.LAUNCH_SHAPES, cholesky_kernels.LAUNCHES, sparse.QR_SHAPES]
 
 
 def _snapshot() -> list:

@@ -1,11 +1,16 @@
 """Tracing and timing helpers (counterpart of
 `gaussianprocesses_jl_tpu/utils/profiling.py`).
 
-Six tools:
+Eight tools:
   * `trace(dir)`             - context manager writing a `torch.profiler`
                                trace (Chrome/Perfetto JSON) of the block.
   * `span(name)`             - a named range of the port's own, kept by a
                                running profiler session (below).
+  * `bracket(tag, like)`     - the device's counterpart of a span: marker
+                               kernels on the stream before and after the
+                               block, which a CUDA graph captures (below).
+  * `mark(tag, end, like)`   - one marker of a bracket alone (an autograd
+                               function's backward launches it).
   * `device_ms_by_name(fn)`  - the card's time per call of fn(*args) by
                                kernel and by operator, from torch.profiler.
   * `device_profile(fn)`     - the same as device-busy ms and the top
@@ -35,10 +40,27 @@ starts with `gp.`:
 
 No span sits inside a function that `graphs.run` captures: it would run
 once at the capture and never at a replay.
+
+The port's brackets. Inside a captured function the device's own timeline
+is the only clock a replay keeps, so `bracket(tag, like)` launches an empty
+kernel before the block and another after it on the current stream of
+`like`'s device (`csrc/marker.cu`), whose names carry the tag: for
+`gp.qr.fwd`, `gp_qr_fwd_begin` and `gp_qr_fwd_end`. A capture holds them as
+nodes of the graph, so every replay runs them around the same work, and a
+device trace holds them beside the kernels between them. On the card each
+marker is one launch of one thread, with or without a profiler session (a
+graph captured without one may be replayed under one); on the CPU nothing.
+Every tag is in `MARKS`, in the order of the kernels of `csrc/marker.cu`:
+
+  * `gp.qr.fwd`  - the reduced QR of a sparse strategy's stacked matrix
+                   (`models/sparse.py::_finish`);
+  * `gp.qr.vjp`  - that QR's VJP: `mark` from the backward of an identity
+                   on each side of the QR.
 """
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
 import time
 from typing import Callable, Sequence
@@ -46,9 +68,13 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-__all__ = ["trace", "span", "device_ms_by_name", "device_profile", "device_time", "card_line"]
+__all__ = ["trace", "span", "bracket", "mark", "MARKS", "mark_kernel", "device_ms_by_name",
+           "device_profile", "device_time", "card_line"]
 
 _NO_SPAN = contextlib.nullcontext()
+# the brackets' tags, in the order of csrc/marker.cu's kernels (a begin and an end each)
+MARKS = ("gp.qr.fwd", "gp.qr.vjp")
+_MARK_ENTRY: list = []
 
 
 def _profiler():
@@ -89,6 +115,51 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+def mark_kernel(tag: str, end: bool) -> str:
+    """The name of a bracket's marker kernel: `gp.qr.fwd` -> `gp_qr_fwd_begin`
+    (or `_end`)."""
+    return tag.replace(".", "_") + ("_end" if end else "_begin")
+
+
+def _mark_entry():
+    if not _MARK_ENTRY:
+        from ..ops import cuda
+
+        fn = cuda.load("marker.cu").gp_mark
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_void_p]
+        _MARK_ENTRY.append(fn)
+    return _MARK_ENTRY[0]
+
+
+def mark(tag: str, end: bool, like: torch.Tensor) -> None:
+    """Launch the marker kernel of `tag`'s begin (or end) on the current
+    stream of `like`'s device; nothing where `like` is not on the card."""
+    if like.device.type != "cuda":
+        return
+    which = 2 * MARKS.index(tag) + int(end)
+    if like.device.index == torch.cuda.current_device():
+        err = _mark_entry()(which, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(like.device):
+            err = _mark_entry()(which, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"marker {mark_kernel(tag, end)} launch failed: cudaError_t {err}")
+
+
+@contextlib.contextmanager
+def bracket(tag: str, like: torch.Tensor):
+    """Marker kernels of `tag` before and after the block on the current
+    stream of `like`'s device: the block's device work lies between them in
+    a device trace, in a graph's replay too.
+
+        with profiling.bracket("gp.qr.fwd", A):
+            Q, R = torch.linalg.qr(A, mode="reduced")
+    """
+    mark(tag, False, like)
+    yield
+    mark(tag, True, like)
 
 
 def device_ms_by_name(fn: Callable, args: Sequence = (), reps: int = 5,

@@ -159,6 +159,15 @@ Phases, each of which exits non-zero on the first failure:
      one split outer iteration: its 16 A transitions on the fused route, one
      kernel launch each (the launches counted from 0 over those iterations;
      the kernel table's `launches`).
+ 34. FITC's float32 QR (`models/sparse._CholQR3`, `perf/qr_study.py`): on
+     configuration #4's stacked matrix (100 512 x 512) at the benchmark
+     pool's first start, the mixed-precision shifted Cholesky QR's forward
+     and VJP times beside `torch.linalg.qr`'s (`library_ms`), and each route's
+     ||Q^T Q - I||_2, ||QR - A||_2 / ||A||_2 and R's gap against float64
+     Householder; the route's each under 4 u32 and under the library's, and
+     its factors succeeded; a 3-iteration `optimize(method='optax')` from
+     that start, through its graphs, takes the float32 route once an
+     evaluation (`QR_ROUTES` against `QR_SHAPES`). No cell runs it.
 On the card the targets, the samplers, VI's steps, optax's L-BFGS,
 cross-validation, the predictives and the elastic append run through
 their CUDA graphs (`utils/graphs.py`) in every phase unless it asks for
@@ -211,7 +220,8 @@ from gaussianprocesses_jl_tpu_torch.perf import cholesky_study as study
 from gaussianprocesses_jl_tpu_torch.parallel import chains
 from gaussianprocesses_jl_tpu_torch.perf import (anchors, bench_study, elastic_study, fitc_study,
                                                  gpa_study, gram_study, lbfgs_study,
-                                                 leapfrog_study, parallel_study, single_parts,
+                                                 leapfrog_study, parallel_study, qr_study,
+                                                 single_parts,
                                                  student_t_study, vi_study)
 from gaussianprocesses_jl_tpu_torch.perf.gram_study import (
     F32_FLOPS,
@@ -2282,6 +2292,27 @@ def phase_leapfrog(dev) -> dict:
     return out
 
 
+QR_GAP = 4 * 2.0 ** -24  # phase 34: four float32 unit roundoffs
+
+
+def phase_cholqr(dev) -> dict:
+    """Phase 34: FITC's float32 QR route against `torch.linalg.qr` on
+    configuration #4's stacked matrix (`qr_study.card_check`)."""
+    out = qr_study.card_check(dev)
+    route, lib = out["cholqr3"], out["library"]
+    over = {k: route[k] for k in ("orth", "residual", "r_gap")
+            if not route[k] < min(QR_GAP, lib[k])}
+    if over or not route["ok"]:
+        fail(f"phase 34: the float32 QR route's gaps {over} over {QR_GAP:.2e} or over the "
+             f"library's {lib}, or its factors failed (ok {route['ok']})")
+    fit, shape = out["fit"], f"{out['rows']} {out['cols']}"
+    if fit["qr_routes"] != {f"cholqr3 {shape}": fit["qr_shapes"].get(f"qr {shape}")} or (
+            fit["qr_shapes"].get(f"qr {shape}") != fit["evaluations"]):
+        fail(f"phase 34: a fit's QRs by route {fit['qr_routes']} and by shape "
+             f"{fit['qr_shapes']}, not one float32 route an evaluation ({fit['evaluations']})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2515,6 +2546,11 @@ def main() -> int:
     print("phase 33: the fused leapfrog of split HMC's block A", flush=True)
     leap = phase_leapfrog(dev)
     print(f"phase 33: {time.perf_counter() - t0:.1f} s", flush=True)
+    # 34. FITC's float32 QR
+    t0 = time.perf_counter()
+    print(f"phase 34: FITC's float32 QR at 100 512 x 512, card {card}", flush=True)
+    qr = phase_cholqr(dev)
+    print(f"phase 34: {time.perf_counter() - t0:.1f} s", flush=True)
     dist_errs = {k: max(dist[p]["max_abs_err"][k] for p in dist) for k in ("gram", "gram_vjp")}
     for errs in (fitc["max_abs_err"], fsa_errs, vi_out["max_abs_err"], anchor_errs,
                  config5["max_abs_err"], dist_errs, table_errs, graphed["max_abs_err"]):
@@ -2629,6 +2665,7 @@ def main() -> int:
             "library_ms": lib,
             **extra,
         })
+    table["qr"] = qr
     print(json.dumps(table))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

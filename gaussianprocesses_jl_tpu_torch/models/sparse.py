@@ -10,19 +10,42 @@ block-diagonal residuals over a partition of the observations (FSA). The
 factorization is the JAX package's: a reduced QR of the stacked matrix
 [Lambda^-1/2 Kfu; Luu^T], whose R gives R^T R = Kuu + Kuf Lambda^-1 Kfu and
 whose data rows Qw give Sigma^-1 = Lambda^-1/2 (I - Qw Qw^T) Lambda^-1/2.
-Gradients come from autograd through the QR (`torch.linalg.qr`, reduced
-mode) and the gram op, whose cross gram K(Xu, X) launches the gram kernels
-on a CUDA tensor. FSA's ragged partition is padded to one block width with
-masks; its per-block grams run as one batched gram (`torch.func.vmap` over
-the blocks, the kernel's parameters shared).
+Gradients come from autograd through the QR and the gram op, whose cross
+gram K(Xu, X) launches the gram kernels on a CUDA tensor. FSA's ragged
+partition is padded to one block width with masks; its per-block grams run
+as one batched gram (`torch.func.vmap` over the blocks, the kernel's
+parameters shared).
+
+The QR takes one of two routes by the stacked matrix's dtype (`_qr`):
+
+  * float32: a mixed-precision shifted Cholesky QR in three passes
+    (`_CholQR3`; Fukaya et al., SIAM J. Sci. Comput. 42(1), 2020). The
+    Gram matrix of the float32 matrix is formed in float64, where each
+    product of two float32 numbers is exact, and every later n-side step
+    stays in float64; Q and R are rounded to float32 at the end. An
+    unshifted Cholesky QR squares cond(A) against float64's unit roundoff
+    and failed from cond(A) ~ 4e7 on, inside what the float32 model's floors
+    allow (Lambda >= 1e-5, Kuu's jitter 1e-4 of its scale); the first
+    pass's Gram is therefore shifted so that its factor succeeds, and two
+    unshifted passes restore Q's orthogonality. The route holds Q to
+    float32's rounding on float32 matrices up to cond(A) 1e10
+    (tests/test_torch_cholqr.py), where Householder's float32 R has long
+    lost the small singular values. Its work is six large GEMMs
+    (three Grams, three products by an m x m inverse), where a blocked
+    Householder QR runs two latency-bound panel launches a column block.
+    Its VJP is the closed-form reduced-QR VJP, in float32.
+  * float64: `torch.linalg.qr` (Householder). Its Kuu jitter is 1e-10, so
+    cond(A)^2 can pass float64's range, and a float64 Gram matrix has no
+    wider type behind it.
 
 The QR is the strategies' largest piece of device work, and it runs inside
 the CUDA graph that replays an evaluation. So its forward runs between the
 device markers of `gp.qr.fwd` and its VJP between those of `gp.qr.vjp`
 (`utils/profiling.bracket`: kernels on the stream, which the graph captures
 and a device trace names), and `QR_SHAPES` counts the factorizations and
-their VJPs by shape, as `ops/gram.LAUNCH_SHAPES` counts the gram's launches
-(a graph's replay adds what its capture counted, `utils/graphs.py`).
+their VJPs by shape, as `ops/gram.LAUNCH_SHAPES` counts the gram's launches,
+and `QR_ROUTES` the factorizations by route and shape (a graph's replay adds
+what its capture counted, `utils/graphs.py`).
 
 The strategies plug into GPE through the covariance-strategy interface
 (build / predict_mvn); the constructors `SoR`, `DTC`, `FITC` and `FSA` build
@@ -52,11 +75,15 @@ __all__ = [
     "LowRankPD",
     "pad_pred_blocks",
     "QR_SHAPES",
+    "QR_ROUTES",
 ]
 
 # reduced QRs of the stacked matrix by ("qr", rows, columns), and their VJPs
 # by ("qr_vjp", rows, columns)
 QR_SHAPES = collections.Counter()
+# the reduced QRs by (route, rows, columns): "cholqr3" for a float32 matrix,
+# "householder" for any other
+QR_ROUTES = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -169,9 +196,13 @@ class LowRankPD(Module):
 
     R (m, m) upper with R^T R = Kuu + Kuf Lambda^-1 Kfu, and Qw the data rows
     of Q from the reduced QR of [Lambda^-1/2 Kfu; Luu^T]. The normal
-    equations' Cholesky is not used: in f32 its error is eps cond(R^T R),
-    which for smooth kernels gave negative quadratic forms; the projector
-    form needs no n-side triangular solve."""
+    equations' Cholesky in the working precision is not used: in f32 its
+    error is eps cond(R^T R), which for smooth kernels gave negative
+    quadratic forms; the projector form needs no n-side triangular solve.
+    In f32 the QR itself is a shifted Cholesky QR whose Grams are float64
+    (`_qr`): their error is float64's, the shift keeps the first factor
+    from failing, and two more passes restore Q's orthogonality; in f64 it
+    is Householder's."""
 
     Luu: Any  # (m, m) Cholesky factor of Kuu + jitter
     Kuf: Any  # (m, n)
@@ -269,27 +300,102 @@ class _VjpMark(torch.autograd.Function):
         return (None, None, *grads)
 
 
+def _chol_inv_t(G):
+    """(R^-1, R, ok) for R the upper Cholesky factor of the symmetric G:
+    R^-1 from one m x m triangular solve against the identity, so the
+    n-side product by it is a GEMM, not a triangular solve. A failed factor
+    is the identity, so what follows stays finite; `ok` says so on the
+    device."""
+    L, ok = safe_cholesky(G)
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    return torch.linalg.solve_triangular(L, eye, upper=False).mT, L.mT, ok
+
+
+# float64's unit roundoff
+_U64 = 2.0 ** -53
+
+
+class _CholQR3(torch.autograd.Function):
+    """The reduced QR of A (rows >= columns) as a mixed-precision shifted
+    Cholesky QR in three passes: (Q, R, ok), Q and R in A's dtype, R's
+    diagonal positive, ok a device bool (all three Cholesky factors
+    succeeded).
+
+    Pass 1: G1 = A^T A in float64, shifted by s = 11 (rows cols + cols
+    (cols + 1)) u64 ||A||_F^2 (||A||_F^2 = tr G1), Fukaya et al.'s shift,
+    under which the factor of G1 + s I succeeds for any finite A; R1 = chol(G1 +
+    s I)^T, Q1 = A R1^-1, whose condition number is about sqrt(s) / sigma_min
+    (A). Passes 2 and 3: G = Q^T Q unshifted, R_k = chol(G)^T, Q <- Q R_k^-1;
+    R = R3 R2 R1. Every n-side step is a float64 GEMM: cuBLAS runs them on
+    the tensor cores. The backward is the closed-form VJP of the reduced QR,
+    as `torch.linalg.qr`'s backward computes it for rows >= columns:
+    dA = (dQ + Q sym(triu(dR R^T - Q^T dQ))) R^-T, sym(X) = X + X^T with the
+    diagonal once. Both are vmappable (`generate_vmap_rule`): the samplers
+    vmap a sparse model's target over chains."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(A):
+        rows, cols = A.shape
+        Q = A.to(torch.float64)
+        G = Q.mT @ Q
+        shift = 11 * (rows * cols + cols * (cols + 1)) * _U64 * G.diagonal().sum()
+        X, R, ok = _chol_inv_t(add_diag(G, shift))
+        Q = Q @ X  # A's float64 copy is freed here
+        for _ in range(2):
+            X, Rk, okk = _chol_inv_t(Q.mT @ Q)
+            Q, R, ok = Q @ X, Rk @ R, ok & okk  # R upper: a product of upper factors
+        return Q.to(A.dtype), R.to(A.dtype), ok
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        Q, R, ok = output
+        ctx.mark_non_differentiable(ok)
+        ctx.save_for_backward(Q, R)
+
+    @staticmethod
+    def backward(ctx, dQ, dR, _):
+        Q, R = ctx.saved_tensors
+        M = torch.triu(dR @ R.mT - Q.mT @ dQ)
+        dA = Q @ (M + torch.triu(M, 1).mT) + dQ
+        return torch.linalg.solve_triangular(R.mT, dA, upper=False, left=False)
+
+
 def _qr(A):
     """The reduced QR of A (rows >= columns) between the markers of
-    `gp.qr.fwd`, its VJP between those of `gp.qr.vjp`; counted by shape."""
+    `gp.qr.fwd`, its VJP between those of `gp.qr.vjp`: (Q, R, ok), ok a
+    device bool. A float32 A takes the mixed-precision shifted Cholesky QR
+    (`_CholQR3`, ok its factors'; Q orthogonal to float32's rounding up to
+    cond(A) 1e10 at least), any other `torch.linalg.qr` (ok True).
+    Counted by shape in `QR_SHAPES` and by route in `QR_ROUTES`."""
     shape = tuple(A.shape)
     (A,) = _VjpMark.apply(True, shape, A)
     with profiling.bracket("gp.qr.fwd", A):
-        Q, R = torch.linalg.qr(A, mode="reduced")
+        if A.dtype == torch.float32:
+            route = "cholqr3"
+            Q, R, ok = _CholQR3.apply(A)
+        else:
+            route = "householder"
+            Q, R = torch.linalg.qr(A, mode="reduced")
+            ok = torch.ones((), dtype=torch.bool, device=A.device)
     QR_SHAPES[("qr", *shape)] += 1
-    return _VjpMark.apply(False, shape, Q, R)
+    QR_ROUTES[(route, *shape)] += 1
+    return (*_VjpMark.apply(False, shape, Q, R), ok)
 
 
 def _finish(Luu, ok_uu, Kuf, lam):
     """R^T R = Kuu + Kuf Lambda^-1 Kfu from the reduced QR of
-    [Lambda^-1/2 Kfu; Luu^T] (rows >= columns), R's diagonal made positive."""
+    [Lambda^-1/2 Kfu; Luu^T] (rows >= columns), R's diagonal made positive
+    (the float32 route's already is; `_qr` says which dtype takes which
+    route)."""
     W = lam.whiten_rows(Kuf.T)  # (n', m)
-    Q, R = _qr(torch.cat([W, Luu.T]))
+    Q, R, ok_qr = _qr(torch.cat([W, Luu.T]))
     s = torch.sign(R.diagonal())
     s = torch.where(s == 0, torch.ones_like(s), s)
     R = s[:, None] * R
     Qw = Q[: W.shape[0]] * s[None, :]
-    ok = ok_uu & torch.isfinite(R).all() & (R.diagonal() > 0).all()
+    ok = ok_uu & ok_qr & torch.isfinite(R).all() & (R.diagonal() > 0).all()
     lam_ok = getattr(lam, "ok", None)
     if lam_ok is not None:
         ok = ok & lam_ok

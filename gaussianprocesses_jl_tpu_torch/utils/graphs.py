@@ -55,7 +55,8 @@ the card runs inside `eager()`.
 
 Launch counts: `ops/gram.py`'s and `ops/cholesky_kernels.py`'s wrappers
 count their launches in Python, which a replay does not pass through, and
-`models/sparse.py` its QRs and their VJPs (`QR_SHAPES`). The
+`models/sparse.py` its QRs and their VJPs (`QR_SHAPES`) and its QRs by
+route (`QR_ROUTES`). The
 counts a capture records are added at every replay, and the warm-up's and
 the capture's own are taken back: one call counts one evaluation's
 launches, whether eager or replayed.
@@ -168,7 +169,8 @@ def _counters() -> list:
     from ..models import sparse
     from ..ops import cholesky_kernels, gram
 
-    return [gram.LAUNCHES, gram.LAUNCH_SHAPES, cholesky_kernels.LAUNCHES, sparse.QR_SHAPES]
+    return [gram.LAUNCHES, gram.LAUNCH_SHAPES, cholesky_kernels.LAUNCHES, sparse.QR_SHAPES,
+            sparse.QR_ROUTES]
 
 
 def _snapshot() -> list:

@@ -61,6 +61,7 @@ import torch
 from ..ops.linalg import (add_diag, chol_logdet, default_jitter, safe_cholesky,
                           solve_lower, solve_upper)
 from ..utils import profiling
+from ..utils.graphs import counted
 from ..utils.modules import Module, module
 
 __all__ = [
@@ -80,10 +81,10 @@ __all__ = [
 
 # reduced QRs of the stacked matrix by ("qr", rows, columns), and their VJPs
 # by ("qr_vjp", rows, columns)
-QR_SHAPES = collections.Counter()
+QR_SHAPES = counted(collections.Counter())
 # the reduced QRs by (route, rows, columns): "cholqr3" for a float32 matrix,
 # "householder" for any other
-QR_ROUTES = collections.Counter()
+QR_ROUTES = counted(collections.Counter())
 
 
 # ---------------------------------------------------------------------------

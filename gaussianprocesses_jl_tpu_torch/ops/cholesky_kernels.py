@@ -11,10 +11,9 @@ routes its own factorization through these kernels; the study
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
+from ..utils.graphs import counted
 from . import cuda
 
 __all__ = ["LAUNCHES", "TILE", "launch_probe", "launch_probe_plain",
@@ -25,7 +24,7 @@ __all__ = ["LAUNCHES", "TILE", "launch_probe", "launch_probe_plain",
            "single_launch_split"]
 
 # kernel launches by name; each wrapper adds one where it launches
-LAUNCHES = {"launch_probe": 0, "chol_inv_panel": 0, "single_launch_cholesky": 0}
+LAUNCHES = counted({"launch_probe": 0, "chol_inv_panel": 0, "single_launch_cholesky": 0})
 
 # the CUDA kernels' tile edge and micro-panel width: every size they take is
 # a multiple of it
@@ -34,40 +33,10 @@ TILE = 64
 _F32 = torch.float32
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points of csrc/cholesky.cu and their argument types
-_ARGTYPES = {
-    "launch_probe_f32": [_P, _I, _P, _I, _P],
-    "panel_max_blocks": [ctypes.POINTER(_I)],
-    "chol_inv_panel_f32": [_P, _P, _P, _I, _I, _P, _P],
-    "single_launch_max_blocks": [ctypes.POINTER(_I)],
-    "single_launch_cholesky_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-}
-_ENTRIES: dict = {}
-
-
-def _entry(name: str):
-    """The bound C function `name`, the library built at first use."""
-    fn = _ENTRIES.get(name)
-    if fn is None:
-        fn = getattr(cuda.load("cholesky.cu"), name)
-        fn.restype = _I
-        fn.argtypes = _ARGTYPES[name]
-        _ENTRIES[name] = fn
-    return fn
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
-
-
 def _launch(entry: str, kernel: str, device: torch.device, *args) -> None:
-    """Call the C entry on `device`'s current stream, raise on a nonzero
-    cudaError_t, and count one launch of `kernel`."""
-    with torch.cuda.device(device):
-        err = _entry(entry)(*args, torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, kernel)
+    """Call the C entry of `csrc/cholesky.cu` on `device`'s current stream
+    and count one launch of `kernel`."""
+    cuda.call("cholesky.cu", entry, *args, device=device)
     LAUNCHES[kernel] += 1
 
 
@@ -248,12 +217,7 @@ def max_grid_blocks(kernel: str) -> int:
     largest grid its launch accepts. Queried once per device."""
     key = (kernel, torch.cuda.current_device())
     if key not in _MAX_BLOCKS:
-        blocks = ctypes.c_int(0)
-        _raise_on(_entry(f"{kernel}_max_blocks")(ctypes.byref(blocks)),
-                  f"{kernel} occupancy query")
-        if blocks.value < 1:
-            raise RuntimeError(f"{kernel}: no block of the kernel fits on the card")
-        _MAX_BLOCKS[key] = blocks.value
+        _MAX_BLOCKS[key] = cuda.max_blocks("cholesky.cu", f"{kernel}_max_blocks")
     return _MAX_BLOCKS[key]
 
 

@@ -6,6 +6,12 @@ is built when the package is imported: a kernel's library is built at its
 first launch, or ahead of time by `build()`. The library's file name holds
 a hash of its source, the `csrc` files it includes, and the flags, so a
 stale build is never loaded.
+
+Every C entry of those libraries is called through `call`: `entry` binds it
+once with the argument types of its `extern "C" int name(...)` declaration
+in the source; `call` passes the current stream to an entry that takes one
+and raises on the `cudaError_t` it returns. `max_blocks` asks a cooperative
+kernel's occupancy query how large a grid the card takes.
 """
 from __future__ import annotations
 
@@ -17,7 +23,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCES", "build", "load"]
+import torch
+
+__all__ = ["SOURCES", "build", "load", "entry", "call", "max_blocks"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -90,3 +98,80 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(source)))
         _loaded[source] = lib
     return lib
+
+
+# ctypes types of the declarations' non-pointer parameters
+_PARAM_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong}
+
+
+class _Stream(ctypes.c_void_p):
+    """An entry's last parameter `void* stream`: `call` passes the current
+    stream there."""
+
+
+def _arg_types(source: str, name: str) -> list:
+    """The ctypes argument types of `extern "C" int name(...)` in `source`
+    or a `csrc` file it includes: every pointer c_void_p (`_Stream` for a
+    last `void* stream`), `int` c_int, `long long` c_longlong. Raises on
+    any other type, or where no such declaration is found."""
+    decl = re.search(r'extern "C" int\s+' + re.escape(name) + r"\s*\(([^)]*)\)",
+                     _source_bytes(source).decode())
+    if decl is None:
+        raise ValueError(f'{source}: no declaration extern "C" int {name}(...)')
+    params = [p.strip() for p in decl.group(1).split(",") if p.strip()]
+    types = []
+    for i, param in enumerate(params):
+        if "*" in param:
+            stream = i == len(params) - 1 and re.fullmatch(r"void\s*\*\s*stream", param)
+            types.append(_Stream if stream else ctypes.c_void_p)
+            continue
+        t = _PARAM_TYPES.get(" ".join(re.sub(r"\bconst\b", " ", param).split()[:-1]))
+        if t is None:
+            raise ValueError(f"{source}: {name}: no ctypes type for the parameter {param!r}")
+        types.append(t)
+    return types
+
+
+_ENTRIES: dict = {}  # (source, name) -> the bound C function
+
+
+def entry(source: str, name: str):
+    """The C function `name` of `source`'s library (built first if missing),
+    bound once: it returns a cudaError_t, and its argument types are those
+    of its declaration."""
+    fn = _ENTRIES.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _arg_types(source, name)
+        _ENTRIES[source, name] = fn
+    return fn
+
+
+def call(source: str, name: str, *args, device: torch.device | None = None) -> None:
+    """Call the C entry `name` of `source` with `args` and raise on a nonzero
+    cudaError_t. An entry whose last parameter is the stream gets the
+    current stream of `device` (a CUDA device), the current device switched
+    only when it is another; any other entry is called as it is."""
+    fn = entry(source, name)
+    if fn.argtypes and fn.argtypes[-1] is _Stream:
+        if device.index == torch.cuda.current_device():
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError_t {err}")
+
+
+def max_blocks(source: str, name: str) -> int:
+    """The most blocks of a cooperative kernel that fit on the current
+    device at once, from its occupancy query `int name(int* blocks)`;
+    raises when not one fits."""
+    blocks = ctypes.c_int(0)
+    call(source, name, ctypes.byref(blocks))
+    if blocks.value < 1:
+        raise RuntimeError(f"{name}: no block of the kernel fits on the card")
+    return blocks.value

@@ -26,11 +26,11 @@ its own, so that its vmap rule sees plain tensors too.
 from __future__ import annotations
 
 import collections
-import ctypes
 import math
 
 import torch
 
+from ..utils.graphs import counted
 from . import cuda
 from .distance import safe_dist, sqdist
 
@@ -44,8 +44,8 @@ SE, MAT12, MAT32, MAT52, RQ, PERIODIC = range(6)
 # kernel launches by name; each wrapper adds one where it launches, here and
 # under the key (name, n1, n2, cross) of the gram's shape and walk (cross:
 # X2 given) in LAUNCH_SHAPES
-LAUNCHES = {"gram": 0, "gram_vjp": 0}
-LAUNCH_SHAPES = collections.Counter()
+LAUNCHES = counted({"gram": 0, "gram_vjp": 0})
+LAUNCH_SHAPES = counted(collections.Counter())
 
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
@@ -246,42 +246,7 @@ def _strides(p, X1, X2, sym):
     return sx1, sx2, 3 if p.ndim == 2 else 0
 
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry points of csrc/gram.cu and their argument types
-_ARGTYPES = {
-    "gram_f32": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
-    "gram_f64": [_P] * 4 + [_I] * 6 + [_L] * 3 + [_I, _P],
-    "gram_vjp_f32": [_P] * 8 + [_I] * 9 + [_L] * 3 + [_I, _P],
-    "gram_vjp_f64": [_P] * 8 + [_I] * 9 + [_L] * 3 + [_I, _P],
-}
-_ENTRIES: dict = {}
-_SMS: dict = {}
-
-
-def _entry(name: str):
-    """The bound C function `name`, its types set once, the library built
-    at first use."""
-    fn = _ENTRIES.get(name)
-    if fn is None:
-        fn = getattr(cuda.load("gram.cu"), name)
-        fn.restype = _I
-        fn.argtypes = _ARGTYPES[name]
-        _ENTRIES[name] = fn
-    return fn
-
-
-def _call(name: str, device: torch.device, *args) -> None:
-    """Call the C entry `name` on `device`'s current stream, switching the
-    current device only when it is another, and raise on a nonzero
-    cudaError_t."""
-    fn = _entry(name)
-    if device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+_SMS: dict = {}  # device index -> its SM count
 
 
 def _suffix(dtype) -> str:
@@ -306,9 +271,9 @@ def launch_gram(family: int, p: torch.Tensor, X1: torch.Tensor,
     out = torch.empty(shape, dtype=X1.dtype, device=X1.device)
     if out.numel() == 0:
         return out
-    _call(f"gram_{_suffix(X1.dtype)}", X1.device, X1.data_ptr(), X2.data_ptr(), p.data_ptr(),
-          out.data_ptr(), n1, n2, d, family, int(sym), chains or 1,
-          *_strides(p, X1, X2, sym), int(grid))
+    cuda.call("gram.cu", f"gram_{_suffix(X1.dtype)}", X1.data_ptr(), X2.data_ptr(), p.data_ptr(),
+              out.data_ptr(), n1, n2, d, family, int(sym), chains or 1,
+              *_strides(p, X1, X2, sym), int(grid), device=X1.device)
     LAUNCHES["gram"] += 1
     LAUNCH_SHAPES["gram", n1, n2, not sym] += 1
     return out
@@ -351,10 +316,10 @@ def launch_gram_vjp(family: int, p: torch.Tensor, X1: torch.Tensor, X2: torch.Te
     scratch = torch.empty(vjp_scratch_elems(n1, n2, d, sym, need_dx1, need_dx2, sms, chains or 1),
                           dtype=X1.dtype, device=X1.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    _call(f"gram_vjp_{_suffix(X1.dtype)}", X1.device, X1.data_ptr(), X2c.data_ptr(),
-          p.data_ptr(), G.data_ptr(), ptr(dp), ptr(dX1), ptr(dX2), scratch.data_ptr(),
-          n1, n2, d, family, int(sym), int(need_dp), int(need_dx1), int(need_dx2),
-          chains or 1, *_strides(p, X1, X2c, sym), int(grid))
+    cuda.call("gram.cu", f"gram_vjp_{_suffix(X1.dtype)}", X1.data_ptr(), X2c.data_ptr(),
+              p.data_ptr(), G.data_ptr(), ptr(dp), ptr(dX1), ptr(dX2), scratch.data_ptr(),
+              n1, n2, d, family, int(sym), int(need_dp), int(need_dx1), int(need_dx2),
+              chains or 1, *_strides(p, X1, X2c, sym), int(grid), device=X1.device)
     LAUNCHES["gram_vjp"] += 1
     LAUNCH_SHAPES["gram_vjp", n1, n2, not sym] += 1
     return dp, dX1, dX2

@@ -14,20 +14,20 @@ kernel so far.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 
+from ..utils.graphs import counted
 from . import cuda
 
 __all__ = ["LAUNCHES", "ProbitA", "fits", "smem_bytes", "transition", "transition_plain",
            "launch"]
 
 # kernel launches; the wrapper adds one where it launches
-LAUNCHES = {"leapfrog": 0}
+LAUNCHES = counted({"leapfrog": 0})
 
 # threads a block; the kernel gives one element of each vector to a thread
 THREADS = 256
@@ -124,22 +124,6 @@ def transition_plain(L, ok, mu, y, const, theta, tgt, grad, nu0, steps, log_u, e
             torch.where(acc[:, None], g, grad), ap, acc)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 12 + [_I, _I, _I] + [_P] * 5 + [_P]
-_ENTRIES: dict = {}
-
-
-def _entry(name: str):
-    """The bound C function `name`, the library built at first use."""
-    fn = _ENTRIES.get(name)
-    if fn is None:
-        fn = getattr(cuda.load("leapfrog.cu"), name)
-        fn.restype = _I
-        fn.argtypes = _ARGTYPES
-        _ENTRIES[name] = fn
-    return fn
-
-
 def launch(L, ok, mu, y, const, theta, tgt, grad, nu0, steps, log_u, eps, Lmax: int):
     """`transition_plain`'s transition as one launch of the kernel on the
     current stream, on CUDA tensors; raises on operands it does not take
@@ -163,17 +147,12 @@ def launch(L, ok, mu, y, const, theta, tgt, grad, nu0, steps, log_u, eps, Lmax: 
             raise ValueError(f"leapfrog: {name} must be contiguous")
     out = (torch.empty_like(theta), torch.empty_like(tgt), torch.empty_like(grad),
            torch.empty_like(tgt), torch.empty((C,), dtype=torch.bool, device=dev))
-    fn = _entry("leapfrog_probit_f32" if dt == torch.float32 else "leapfrog_probit_f64")
-    args = (L.data_ptr(), ok.data_ptr(), mu.data_ptr(), y.data_ptr(), const.data_ptr(),
-            theta.data_ptr(), tgt.data_ptr(), grad.data_ptr(), nu0.data_ptr(), steps.data_ptr(),
-            log_u.data_ptr(), eps.data_ptr(), C, n, Lmax, *(t.data_ptr() for t in out))
-    if dev.index == torch.cuda.current_device():  # switch devices only when it is another
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"leapfrog kernel launch failed: cudaError_t {err}")
+    cuda.call("leapfrog.cu",
+              "leapfrog_probit_f32" if dt == torch.float32 else "leapfrog_probit_f64",
+              L.data_ptr(), ok.data_ptr(), mu.data_ptr(), y.data_ptr(), const.data_ptr(),
+              theta.data_ptr(), tgt.data_ptr(), grad.data_ptr(), nu0.data_ptr(), steps.data_ptr(),
+              log_u.data_ptr(), eps.data_ptr(), C, n, Lmax, *(t.data_ptr() for t in out),
+              device=dev)
     LAUNCHES["leapfrog"] += 1
     return out
 

@@ -23,7 +23,6 @@ prints, with the card's name and power limit:
 """
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 
@@ -36,45 +35,18 @@ from .cholesky_study import PANEL_RTOL, _rel_err, headline_panel_matrix, spd_tes
 
 __all__ = ["main"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "tile_bench_f32": [_P, _P, _P, _I],
-    "gemm_bench_f32": [_P, _P, _P, _I, _I, _I],
-    "sync_bench_max_blocks": [ctypes.POINTER(_I)],
-    "sync_bench_run": [_I, _I],
-}
-
-
-def _lib():
-    lib = cuda.load("panel_parts.cu")
-    for name, types in _ARGTYPES.items():
-        getattr(lib, name).restype = _I
-        getattr(lib, name).argtypes = types
-    return lib
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: cudaError_t {err}")
-
 
 def _us_per_iter(launch, iters: int) -> float:
     """Microseconds per iteration of one launch that loops `iters` times,
     from CUDA events, after one warm-up launch of one iteration."""
-    _check(launch(1), "warm-up launch")
+    launch(1)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    _check(launch(iters), "timed launch")
+    launch(iters)
     end.record()
     end.synchronize()
     return 1e3 * start.elapsed_time(end) / iters
-
-
-def _max_blocks(fn) -> int:
-    blocks = ctypes.c_int(0)
-    _check(fn(ctypes.byref(blocks)), "occupancy query")
-    return blocks.value
 
 
 def main(argv=None) -> int:
@@ -85,27 +57,27 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    lib = _lib()
     dev = torch.device("cuda")
     most = ck.max_grid_blocks("panel")
     grids = (1, ck.panel_grid_blocks(1024, most), most)
 
     A = spd_test_matrix(64, 64, dev)
     L, Li = torch.empty_like(A), torch.empty_like(A)
-    us = _us_per_iter(lambda n: lib.tile_bench_f32(A.data_ptr(), L.data_ptr(), Li.data_ptr(), n),
-                      200)
+    us = _us_per_iter(lambda n: cuda.call("panel_parts.cu", "tile_bench_f32", A.data_ptr(),
+                                          L.data_ptr(), Li.data_ptr(), n), 200)
     print(f"chol_inv_tile, one 64 x 64 tile in one block: {us:.3f} us")
 
     X = torch.randn((64, 64), device=dev)
     for grid in grids:
         C = torch.zeros((grid, 64, 64), device=dev)
-        us = _us_per_iter(lambda n: lib.gemm_bench_f32(X.data_ptr(), X.data_ptr(), C.data_ptr(),
-                                                       64, n, grid), 50)
+        us = _us_per_iter(lambda n: cuda.call("panel_parts.cu", "gemm_bench_f32", X.data_ptr(),
+                                              X.data_ptr(), C.data_ptr(), 64, n, grid), 50)
         print(f"gemm_tile 64 x 64 x 64 on {grid} blocks: {us:.3f} us a product, "
               f"{2 * 64**3 * grid / us / 1e6:.3f} TFLOP/s over the grid")
-    sync_most = _max_blocks(lib.sync_bench_max_blocks)
+    sync_most = cuda.max_blocks("panel_parts.cu", "sync_bench_max_blocks")
     for grid in grids:
-        us = _us_per_iter(lambda n: lib.sync_bench_run(n, min(grid, sync_most)), 1000)
+        us = _us_per_iter(lambda n: cuda.call("panel_parts.cu", "sync_bench_run", n,
+                                              min(grid, sync_most)), 1000)
         print(f"grid.sync on {grid} blocks: {us:.3f} us")
 
     A = spd_test_matrix(64, 64, dev)

@@ -21,7 +21,6 @@ prints, with the card's name and power limit:
 """
 from __future__ import annotations
 
-import ctypes
 import subprocess
 import sys
 
@@ -32,43 +31,17 @@ from .cholesky_study import correction_flops, single_launch_stamped, spd_test_ma
 
 __all__ = ["product_rates", "main"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "deep_bench_max_blocks": [ctypes.POINTER(_I)],
-    "gemm_bench_max_blocks": [ctypes.POINTER(_I)],
-    "deep_bench_run": [_P, _P, _P, _I, _I, _I, _I, _I],
-    "gemm_bench_run": [_P, _P, _I, _I, _I, _I, _I],
-}
 DEPTHS = (256, 2560, 5120, 7680, 9984)
-
-
-def _lib():
-    lib = cuda.load("single_parts.cu")
-    for name, types in _ARGTYPES.items():
-        getattr(lib, name).restype = _I
-        getattr(lib, name).argtypes = types
-    return lib
-
-
-def _check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: cudaError_t {err}")
-
-
-def _max_blocks(fn) -> int:
-    blocks = ctypes.c_int(0)
-    _check(fn(ctypes.byref(blocks)), "occupancy query")
-    return blocks.value
 
 
 def _ms_per_iter(launch, iters: int) -> float:
     """Milliseconds per round of one launch that loops `iters` times, from
     CUDA events, after one warm-up launch of one round."""
-    _check(launch(1), "warm-up launch")
+    launch(1)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    _check(launch(iters), "timed launch")
+    launch(iters)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -80,11 +53,10 @@ def product_rates(device="cuda", n: int = 10240, B: int = 256, depths=DEPTHS,
     panel column's correction at each depth c, both ways, on the study's
     matrix. Each way is first checked against torch.matmul in f64 (1e-5 of
     max|.|)."""
-    lib = _lib()
     X = spd_test_matrix(n, 256, device)
-    deep_grid = _max_blocks(lib.deep_bench_max_blocks)
+    deep_grid = cuda.max_blocks("single_parts.cu", "deep_bench_max_blocks")
     # the old single launch's grid: two blocks an SM
-    gemm_grid = min(_max_blocks(lib.gemm_bench_max_blocks),
+    gemm_grid = min(cuda.max_blocks("single_parts.cu", "gemm_bench_max_blocks"),
                     2 * torch.cuda.get_device_properties(device).multi_processor_count)
     part = torch.empty((2 * deep_grid, 128, 128), device=device)
     Xd = X.double()
@@ -92,15 +64,17 @@ def product_rates(device="cuda", n: int = 10240, B: int = 256, depths=DEPTHS,
     for c in depths:
         ref = Xd[c:, c:c + B] - Xd[c:, :c] @ Xd[c:c + B, :c].T
         runs = {
-            "deep": lambda acc, it: lib.deep_bench_run(X.data_ptr(), acc.data_ptr(),
-                                                       part.data_ptr(), n, B, c, it, deep_grid),
-            "gemm_tile": lambda acc, it: lib.gemm_bench_run(X.data_ptr(), acc.data_ptr(), n, B,
-                                                            c, it, gemm_grid),
+            "deep": lambda acc, it: cuda.call("single_parts.cu", "deep_bench_run", X.data_ptr(),
+                                              acc.data_ptr(), part.data_ptr(), n, B, c, it,
+                                              deep_grid),
+            "gemm_tile": lambda acc, it: cuda.call("single_parts.cu", "gemm_bench_run",
+                                                   X.data_ptr(), acc.data_ptr(), n, B, c, it,
+                                                   gemm_grid),
         }
         row = []
         for name, run in runs.items():
             acc = torch.zeros((n, B), device=device)
-            _check(run(acc, 1), f"{name} c={c}")
+            run(acc, 1)
             err = float((acc[c:].double() - ref).abs().max() / ref.abs().max())
             if not err <= 1e-5:
                 raise RuntimeError(f"{name} correction c={c}: {err:.3e} from f64")

@@ -53,13 +53,13 @@ warm-up or a capture (`parallel/collectives.py` reads `capturing()`):
 NCCL under capture is untried here, so a distributed strategy at P > 1 on
 the card runs inside `eager()`.
 
-Launch counts: `ops/gram.py`'s and `ops/cholesky_kernels.py`'s wrappers
-count their launches in Python, which a replay does not pass through, and
-`models/sparse.py` its QRs and their VJPs (`QR_SHAPES`) and its QRs by
-route (`QR_ROUTES`). The
-counts a capture records are added at every replay, and the warm-up's and
-the capture's own are taken back: one call counts one evaluation's
-launches, whether eager or replayed.
+Launch counts: the kernels' wrappers (`ops/gram.py`,
+`ops/cholesky_kernels.py`, `ops/leapfrog.py`) count their launches in
+Python, and `models/sparse.py` its QRs; a replay does not pass through that
+Python. Each such counter, a dict or `Counter` of counts, is declared
+through `counted` in its own module. The counts a capture records are added at every replay,
+and the warm-up's and the capture's own are taken back: one call counts
+one evaluation's launches, whether eager or replayed.
 """
 from __future__ import annotations
 
@@ -74,7 +74,7 @@ import torch
 from .modules import Module
 from .profiling import span
 
-__all__ = ["run", "Bound", "eager", "capturing", "clear", "PER_OWNER"]
+__all__ = ["run", "Bound", "eager", "capturing", "clear", "counted", "PER_OWNER"]
 
 PER_OWNER = 8  # graphs kept for one owner, the least recently replayed dropped first
 
@@ -85,6 +85,7 @@ _POOLS: dict = {}  # device index -> the _Pool its next capture goes into
 _STATIC = (type(None), bool, int, float, str)
 _EAGER = [0]  # depth of the open `eager()` blocks
 _REGION = [0]  # > 0 while a warm-up or a capture runs
+_COUNTERS: list = []  # the counters `counted` registered
 
 
 @contextlib.contextmanager
@@ -165,31 +166,33 @@ def _unflatten(spec, it):
     return tag(*parts) if hasattr(tag, "_fields") else tag(parts)
 
 
-def _counters() -> list:
-    from ..models import sparse
-    from ..ops import cholesky_kernels, gram
-
-    return [gram.LAUNCHES, gram.LAUNCH_SHAPES, cholesky_kernels.LAUNCHES, sparse.QR_SHAPES,
-            sparse.QR_ROUTES]
+def counted(c):
+    """Register the counter `c` (a dict or `Counter` of counts) and return
+    it: a capture records what it adds to `c`, and each replay adds that
+    again."""
+    _COUNTERS.append(c)
+    return c
 
 
 def _snapshot() -> list:
-    return [dict(c) for c in _counters()]
+    """(counter, a copy of its counts) for every registered counter."""
+    return [(c, dict(c)) for c in _COUNTERS]
 
 
 def _restore(snap: list) -> None:
-    for c, s in zip(_counters(), snap):
+    for c, s in snap:
         c.clear()
         c.update(s)
 
 
-def _delta(after: list, before: list) -> list:
-    return [{k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
-            for a, b in zip(after, before)]
+def _delta(before: list) -> list:
+    """(counter, what was added to it since the snapshot `before`)."""
+    return [(c, {k: v - b.get(k, 0) for k, v in c.items() if v != b.get(k, 0)})
+            for c, b in before]
 
 
 def _add(delta: list) -> None:
-    for c, d in zip(_counters(), delta):
+    for c, d in delta:
         for k, v in d.items():
             c[k] = c.get(k, 0) + v
 
@@ -248,7 +251,7 @@ def _capture(fn: Callable, args: tuple, device: torch.device, pool: _Pool) -> tu
         finally:
             graph.capture_end()
     torch.cuda.current_stream(device).wait_stream(stream)
-    return graph.replay, out, _delta(_snapshot(), warm)
+    return graph.replay, out, _delta(warm)
 
 
 class _Graph:

@@ -60,7 +60,6 @@ Every tag is in `MARKS`, in the order of the kernels of `csrc/marker.cu`:
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import os
 import time
 from typing import Callable, Sequence
@@ -68,13 +67,14 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..ops import cuda
+
 __all__ = ["trace", "span", "bracket", "mark", "MARKS", "mark_kernel", "device_ms_by_name",
            "device_profile", "device_time", "card_line"]
 
 _NO_SPAN = contextlib.nullcontext()
 # the brackets' tags, in the order of csrc/marker.cu's kernels (a begin and an end each)
 MARKS = ("gp.qr.fwd", "gp.qr.vjp")
-_MARK_ENTRY: list = []
 
 
 def _profiler():
@@ -123,29 +123,12 @@ def mark_kernel(tag: str, end: bool) -> str:
     return tag.replace(".", "_") + ("_end" if end else "_begin")
 
 
-def _mark_entry():
-    if not _MARK_ENTRY:
-        from ..ops import cuda
-
-        fn = cuda.load("marker.cu").gp_mark
-        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_void_p]
-        _MARK_ENTRY.append(fn)
-    return _MARK_ENTRY[0]
-
-
 def mark(tag: str, end: bool, like: torch.Tensor) -> None:
     """Launch the marker kernel of `tag`'s begin (or end) on the current
     stream of `like`'s device; nothing where `like` is not on the card."""
     if like.device.type != "cuda":
         return
-    which = 2 * MARKS.index(tag) + int(end)
-    if like.device.index == torch.cuda.current_device():
-        err = _mark_entry()(which, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(like.device):
-            err = _mark_entry()(which, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"marker {mark_kernel(tag, end)} launch failed: cudaError_t {err}")
+    cuda.call("marker.cu", "gp_mark", 2 * MARKS.index(tag) + int(end), device=like.device)
 
 
 @contextlib.contextmanager

@@ -367,7 +367,7 @@ def test_replays_add_the_routes_the_capture_counted(emulated):  # noqa: F811
     assert evaluations >= 3 * (1 + lbfgs.TRIAL_BLOCK)
     assert dict(sparse.QR_ROUTES) == {("cholqr3", 208, 8): evaluations}
     assert sparse.QR_SHAPES[("qr", 208, 8)] == evaluations
-    assert sparse.QR_ROUTES in graphs._counters()
+    assert any(c is sparse.QR_ROUTES for c in graphs._COUNTERS)
 
 
 def test_markers_bracket_the_float32_route(monkeypatch):

@@ -210,4 +210,4 @@ def test_replays_add_what_the_capture_counted(emulated):  # noqa: F811
     assert evaluations >= 3 * (1 + lbfgs.TRIAL_BLOCK)
     assert dict(sparse.QR_SHAPES) == {("qr", 208, 8): evaluations,
                                       ("qr_vjp", 208, 8): evaluations}
-    assert sparse.QR_SHAPES in graphs._counters()
+    assert any(c is sparse.QR_SHAPES for c in graphs._COUNTERS)

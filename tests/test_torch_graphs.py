@@ -32,7 +32,9 @@ import torch
 import gaussianprocesses_jl_tpu_torch as gt
 from gaussianprocesses_jl_tpu_torch.inference.hmc import hmc
 from gaussianprocesses_jl_tpu_torch.inference.split import split_hmc
+from gaussianprocesses_jl_tpu_torch.models import sparse
 from gaussianprocesses_jl_tpu_torch.models.gpe import gpe_target
+from gaussianprocesses_jl_tpu_torch.ops import cholesky_kernels, leapfrog
 from gaussianprocesses_jl_tpu_torch.ops import gram as gram_op
 from gaussianprocesses_jl_tpu_torch.parallel import collectives
 from gaussianprocesses_jl_tpu_torch.parallel.chains import sharded_hmc, sharded_split_hmc
@@ -321,7 +323,7 @@ def emulated(monkeypatch):
         fn(*args)
         warm = graphs._snapshot()
         out = fn(*args)
-        launches = graphs._delta(graphs._snapshot(), warm)
+        launches = graphs._delta(warm)
         held = []
         graphs._flatten(out, held)
 
@@ -408,6 +410,32 @@ def test_emulated_replays_count_one_evaluation_of_launches(emulated):
             (base[0] + k, base[1] + k)
     eagerly(graphs.run)(counted, counted, x)
     assert gram_op.LAUNCHES["gram"] == base[0] + 4
+
+
+# every counter of launches a replay must add again: (module, name, a key)
+COUNTERS = [(gram_op, "LAUNCHES", "gram_vjp"), (gram_op, "LAUNCH_SHAPES", ("gram", 5, 7, True)),
+            (cholesky_kernels, "LAUNCHES", "chol_inv_panel"), (sparse, "QR_SHAPES", ("qr", 9, 3)),
+            (sparse, "QR_ROUTES", ("cholqr3", 9, 3)), (leapfrog, "LAUNCHES", "leapfrog")]
+
+
+@pytest.mark.parametrize("module, name, key", COUNTERS,
+                         ids=[f"{m.__name__.rsplit('.', 1)[1]}.{n}" for m, n, _ in COUNTERS])
+def test_emulated_replays_count_every_registered_counter(emulated, module, name, key):
+    """Each counter is registered with the graph layer (`graphs.counted`),
+    so the first call and every replay of a graph that adds to it count
+    once each, as an eager call does."""
+    c = getattr(module, name)
+    assert any(r is c for r in graphs._COUNTERS)
+
+    def adds(x):
+        c[key] = c.get(key, 0) + 1
+        return x + 1.0
+
+    x = torch.ones(2)
+    base = c.get(key, 0)
+    for k in range(1, 4):
+        assert torch.equal(graphs.run(adds, adds, x), x + 1.0)
+        assert c[key] == base + k
 
 
 def test_emulated_graph_keys_a_module_with_an_unhashable_static_field(emulated):
